@@ -1,0 +1,31 @@
+"""Device-side golden-output checksum of one frame.
+
+The twin of ``m2dec_tpu/runtime/golden.py::device_frame_cks``: over the
+frame's cropped NV12 byte stream b (cropped luma rows, then interleaved
+CbCr rows — the bytes the reference's raw writer emits),
+
+    cks(frame) = (sum(b_i) mod 2^32, sum(b_i * ((i mod 8191) + 1)) mod 2^32)
+
+computed on the device in int64, so only two numbers leave it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def device_frame_cks(y, cb, cr, crop) -> tuple[int, int]:
+    """Checksum of a frame's uint8 planes on any device; crop = (left,
+    right, top, bottom) in luma pixels."""
+    cl, cr_, ct, cb_ = crop
+    H, W = y.shape
+    w, h = W - cl - cr_, H - ct - cb_
+    ys = y[ct : ct + h, cl : cl + w].reshape(-1)
+    rows = slice(ct // 2, (ct + h) // 2)
+    cols = slice(cl // 2, (cl + w) // 2)
+    nv = torch.stack([cb[rows, cols], cr[rows, cols]], dim=-1).reshape(-1)
+    b = torch.cat([ys, nv]).to(torch.int64)
+    wv = torch.arange(b.numel(), dtype=torch.int64, device=b.device)
+    out = torch.stack([b.sum(), (b * (wv % 8191 + 1)).sum()]) & 0xFFFFFFFF
+    s, ws = out.tolist()
+    return int(s), int(ws)

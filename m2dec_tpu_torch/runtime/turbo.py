@@ -1,0 +1,132 @@
+"""Overlapped two-phase single-stream H.264 decode on torch tensors.
+
+The twin of ``m2dec_tpu/runtime/turbo.py::TurboH264Decoder``: the native
+C++ Phase A runs ahead producing plans, whole-GOP batches dispatch
+asynchronously to the port's BatchedPhaseB (frame pool resident on the
+device), and DPB output events — captured at exactly the points the
+serial decoder would emit frames — materialize once their batch's
+tensors exist. Output frames, order and error containment match the
+serial decoder; only the phase overlap differs.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from dataclasses import replace
+
+from ..codecs.h264 import host
+from ..codecs.h264.reconstruct import BatchedPhaseB
+from ..device import resolve_device
+
+
+class TurboH264Decoder:
+    """Overlapped Phase A / Phase B H.264 stream decoder.
+
+    batch: pictures per device dispatch. device: where Phase B runs
+    (default: the CUDA device; raises when there is none)."""
+
+    def __init__(self, data: bytes, batch: int = 12, dpb_max: int = -1,
+                 device=None):
+        self.batch = int(batch)
+        self.device = resolve_device(device)
+        self.dec = host.H264Decoder(native=True, plan_alloc="empty",
+                                    dpb_max=dpb_max)
+        self.dec.set_data(data)
+        self.error = 0  # last decode_picture status (<0 at EOS)
+
+    def frames(self):
+        """Yield DecodedFrames with host numpy planes in output order."""
+        for frm, outs, i in self.device_frames():
+            if outs is None:
+                yield frm
+                continue
+            yield replace(frm, y=outs[0][i].cpu().numpy(),
+                          cb=outs[1][i].cpu().numpy(),
+                          cr=outs[2][i].cpu().numpy())
+
+    def device_frames(self):
+        """Yield (frame-meta, outs, row) with planes left on the device:
+        consumers index outs[0..2][row] and copy only what they need."""
+        dec = self.dec
+        batcher = None  # created lazily at first dispatch
+        undisp: list = []  # plans awaiting dispatch (decode order)
+        pool_sizes: dict = {}  # id(plan) -> frame-pool size at decode
+        stores: dict = {}  # id(plan) -> (outs, row)
+        last_plan: dict = {}  # pool slot -> plan that wrote it
+        events: deque = deque()  # (DecodedFrame meta, plan)
+
+        def dispatch():
+            nonlocal batcher
+            if not undisp:
+                return
+            # geometry of the plans being dispatched (on a mid-stream
+            # change the decoder has already switched to the new shape)
+            geom = (undisp[0].mb_w, undisp[0].mb_h,
+                    pool_sizes[id(undisp[0])])
+            for p in undisp:
+                pool_sizes.pop(id(p), None)
+            if batcher is None or (batcher.mb_w, batcher.mb_h,
+                                   batcher.pool[0].shape[0]) != geom:
+                batcher = BatchedPhaseB(*geom, device=self.device)
+            outs = batcher.run_async(undisp)
+            for i, p in enumerate(undisp):
+                stores[id(p)] = (outs, i)
+            undisp.clear()
+
+        def capture(bypass=False):
+            idx, frm = dec.pop_decoded_index(bypass)
+            while idx >= 0:
+                events.append((frm, last_plan.get(idx)))
+                idx, frm = dec.pop_decoded_index(bypass)
+
+        def emit_ready(flush=False):
+            while events:
+                frm, plan = events[0]
+                ent = stores.get(id(plan)) if plan is not None else None
+                if ent is None:
+                    if plan in undisp and flush:
+                        dispatch()
+                        continue
+                    if plan is None:
+                        # a frame output before any picture completed a
+                        # plan: emit the empty pool frame as the serial
+                        # path would
+                        events.popleft()
+                        yield frm, None, None
+                        continue
+                    break
+                events.popleft()
+                outs, i = ent
+                del stores[id(plan)]
+                yield frm, outs, i
+
+        while True:
+            capture()
+            yield from emit_ready()
+            err = dec.decode_picture()
+            self.error = err
+            if err == 1:
+                plan = dec.plans.pop()
+                pool_sizes[id(plan)] = host.dev_pool_size(
+                    dec.sps.num_ref_frames, len(dec.frames))
+                last_plan[dec.cur_idx] = plan
+                # split the pending batch on any geometry change: mb
+                # dims or device-pool size
+                if undisp and (
+                        (undisp[0].mb_w, undisp[0].mb_h,
+                         pool_sizes[id(undisp[0])]) !=
+                        (plan.mb_w, plan.mb_h, pool_sizes[id(plan)])):
+                    dispatch()
+                undisp.append(plan)
+                if len(undisp) >= self.batch:
+                    dispatch()
+                continue
+            # EOS or truncation (err < 0): drain the DPB with bypass as
+            # the serial path does; flush pending Phase-B work first
+            dispatch()
+            capture(bypass=True)
+            yield from emit_ready(flush=True)
+            return
+
+    def decode_all(self):
+        return list(self.frames())
