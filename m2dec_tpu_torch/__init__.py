@@ -1,13 +1,17 @@
-"""m2dec_tpu_torch — the PyTorch/CUDA port of m2dec_tpu's H.264 Phase B.
+"""m2dec_tpu_torch — the PyTorch/CUDA port of m2dec_tpu.
 
-Phase A (native C++ entropy decode, plan packing) is host code with no
-framework and is imported from ``m2dec_tpu`` unchanged; Phase B
-(reconstruction) runs here on torch tensors. On a CUDA device the intra
-and deblocking wavefronts run as hand-written kernels for sm_90a
-(``csrc/h264_wavefront.cu``), built with nvcc at first use; on CPU
-tensors the same functions run their plain PyTorch versions.
+It decodes H.264 and MPEG-1/2 in two phases, like the JAX package.
+Phase A (entropy decode into plans) is host code with no framework: the
+port keeps its own copies of the JAX package's host layer
+(``bitstream``, the codecs' headers, decoders and plan producers, and
+the native C++ Phase A under ``native/``). Phase B (reconstruction)
+runs on torch tensors. On a CUDA device the H.264 intra and deblocking
+wavefronts (``csrc/h264_wavefront.cu``) and the MPEG-2 8x8 IDCT
+(``csrc/mpeg2_idct.cu``) run as hand-written kernels for sm_90a, built
+with nvcc at first use; on CPU tensors the same functions run their
+plain PyTorch versions.
 
-This package never imports jax.
+This package imports neither jax nor any module of ``m2dec_tpu``.
 """
 
 import torch

@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels.
 
-The kernels are compiled with nvcc at first use into a shared library
-with a plain C interface (``build/torch_kernels/``, keyed by a hash of
-the source and flags) and loaded with ctypes. No PyTorch headers are
-involved, so a build takes seconds. Every failure raises: a missing
-source, a missing nvcc, a compiler error or a library that does not load.
+Each source ``csrc/<name>.cu`` is compiled with nvcc at first use into
+its own shared library with a plain C interface (``build/torch_kernels/``,
+keyed by a hash of the source and flags) and loaded with ctypes. No
+PyTorch headers are involved, so a build takes seconds. Every failure
+raises: a missing source, a missing nvcc, a compiler error or a library
+that does not load.
 """
 
 from __future__ import annotations
@@ -16,10 +17,11 @@ import pathlib
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 _HERE = pathlib.Path(__file__).resolve().parent
 
-SOURCE = _HERE / "csrc" / "h264_wavefront.cu"
+CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -27,17 +29,26 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
 
-#: C entry points: (pointers, ints) before the trailing stream. Pointers
-#: and the stream are c_void_p, so ctypes never truncates them to 32 bits.
-_SIGNATURES = {"h264_intra_luma": (11, 3), "h264_intra_chroma": (6, 2),
-               "h264_deblock_luma": (7, 2), "h264_deblock_chroma": (8, 2)}
+#: library -> its C entry points -> argtypes. Pointers and the trailing
+#: stream are c_void_p, so ctypes never truncates them to 32 bits.
+LIBRARIES = {
+    "h264_wavefront": {
+        "h264_intra_luma": [_VP] * 11 + [_INT] * 3 + [_VP],
+        "h264_intra_chroma": [_VP] * 6 + [_INT] * 2 + [_VP],
+        "h264_deblock_luma": [_VP] * 7 + [_INT] * 2 + [_VP],
+        "h264_deblock_chroma": [_VP] * 8 + [_INT] * 2 + [_VP],
+    },
+    "mpeg2_idct": {
+        "mpeg2_idct8x8": [_VP, _VP, ctypes.c_longlong, _VP],
+    },
+}
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
 
-#: nvcc's report of the last build in this process (-Xptxas -v: each
-#: kernel's registers, shared memory and spills)
-LAST_BUILD = {"log": ""}
+#: nvcc's report of each library's last build in this process
+#: (-Xptxas -v: each kernel's registers, shared memory and spills)
+LAST_BUILD: dict = {}
 
 
 def nvcc_path() -> str:
@@ -51,9 +62,20 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _compile(src: pathlib.Path, out: pathlib.Path) -> None:
+def _target(name: str) -> tuple[pathlib.Path, pathlib.Path]:
+    """(source, library path) of library ``name``."""
+    src = pathlib.Path(CSRC) / f"{name}.cu"
+    if not src.is_file():
+        raise FileNotFoundError(f"kernel source missing: {src}")
+    tag = hashlib.sha256(src.read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return src, pathlib.Path(BUILD_DIR) / f"lib{name}_{tag}.so"
+
+
+def _compile(name: str, src: pathlib.Path, out: pathlib.Path) -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    tmp = out.with_name(f"{out.name}.{os.getpid()}."
+                        f"{threading.get_ident()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
@@ -61,29 +83,38 @@ def _compile(src: pathlib.Path, out: pathlib.Path) -> None:
             f"nvcc failed ({res.returncode}) building {src}:\n"
             f"{res.stdout}\n{res.stderr}")
     os.replace(tmp, out)
-    LAST_BUILD["log"] = res.stdout + res.stderr
+    LAST_BUILD[name] = res.stdout + res.stderr
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the wavefront kernel library, once per
-    process for a given source and build directory."""
-    key = (str(SOURCE), str(BUILD_DIR))
+def _build(name: str) -> pathlib.Path:
+    src, out = _target(name)
+    if not out.is_file():
+        _compile(name, src, out)
+    return out
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load kernel library ``name``, once per
+    process for a given source directory and build directory."""
+    key = (name, str(CSRC), str(BUILD_DIR))
     with _LOCK:
         lib = _LIBS.get(key)
         if lib is not None:
             return lib
-        src = pathlib.Path(SOURCE)
-        if not src.is_file():
-            raise FileNotFoundError(f"kernel source missing: {src}")
-        tag = hashlib.sha256(src.read_bytes()
-                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out = pathlib.Path(BUILD_DIR) / f"libh264_wavefront_{tag}.so"
-        if not out.is_file():
-            _compile(src, out)
-        lib = ctypes.CDLL(str(out))
-        for name, (n_ptr, n_int) in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = [_VP] * n_ptr + [_INT] * n_int + [_VP]
+        lib = ctypes.CDLL(str(_build(name)))
+        for fn_name, argtypes in LIBRARIES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         _LIBS[key] = lib
         return lib
+
+
+def build_all() -> None:
+    """Compile every library at once (one nvcc per source, started
+    together), then load each; raises on the first failure."""
+    with ThreadPoolExecutor(len(LIBRARIES)) as ex:
+        for f in [ex.submit(_build, n) for n in LIBRARIES]:
+            f.result()
+    for name in LIBRARIES:
+        load_library(name)

@@ -19,7 +19,9 @@ import torch
 import torch.nn.functional as F
 
 from ...device import resolve_device
-from . import host
+from . import plan_host as host
+from .decoder import Frame
+from .native_pack import pack_batches
 from .state import pool_from_frames
 from .wavefront_kernels import run_wavefronts
 
@@ -652,7 +654,7 @@ def reconstruct_plan_torch(plan, frames, device=None):
     R = host._next_pow2(max(1, len(slots)))
     for i, s in enumerate(slots):
         remap[s] = i
-    zero = host.Frame(frames[0].y.shape[1], frames[0].y.shape[0])
+    zero = Frame(frames[0].y.shape[1], frames[0].y.shape[0])
     refs = [frames[s] for s in slots] + [zero] * (R - len(slots))
     ry, rcb, rcr = pool_from_frames(refs, range(R), dev)
     slot_r = np.where(plan.slot >= 0, remap[np.clip(plan.slot, 0, pool)],
@@ -759,8 +761,8 @@ class BatchedPhaseB:
     """Device-resident frame pool + batched multi-picture Phase B.
 
     Feed plans in decode order; their host frame indexes are translated
-    into the compact device slot space by the JAX package's
-    _DevSlotMap. ``wavefronts`` selects the intra+deblock pass
+    into the compact device slot space by _DevSlotMap
+    (``plan_host``). ``wavefronts`` selects the intra+deblock pass
     (``run_wavefronts``: the kernels on CUDA)."""
 
     def __init__(self, mb_w, mb_h, pool_size, device=None,
@@ -782,7 +784,7 @@ class BatchedPhaseB:
         """Pack a batch on the host: wire blob with remapped slots, the
         dense-MC aux, palettes, cur_idx and PCM rows in one buffer."""
         cur_idx = np.array([p.cur_idx for p in plans], np.int32)
-        res = host.pack_batches([plans])
+        res = pack_batches([plans])
         if res is None:
             raise ValueError("BatchedPhaseB takes the plans of the native "
                              "Phase A (H264Decoder(native=True)), which "
@@ -791,8 +793,7 @@ class BatchedPhaseB:
         fields = host._wire_views(blob, layout)
         host._remap_batch(fields["slot"], cur_idx, plans, self.smap)
         ((used, bi, _, _, _),) = host._derive_mc_aux(
-            [fields["slot"]], self.pool[0].shape[0], [fields["mv"]],
-            [fields["wp"]], [pals], self.mb_w, self.mb_h, compact=False)
+            [fields["slot"]], self.pool[0].shape[0], self.mb_w, self.mb_h)
         extras = {"mc_used": used, "mc_bi": bi}
         extras.update({"pal_" + k: v for k, v in pals.items()})
         if any(p.pcm for p in plans):
@@ -838,23 +839,3 @@ class BatchedPhaseB:
             outs[1][b] = cb
             outs[2][b] = cr
         return outs
-
-
-# =====================================================================
-# device checksum
-# =====================================================================
-
-
-def frame_checksums(y, cb, cr):
-    """Per-picture checksums of [N,...] uint8 plane stacks on the
-    device: int32 [N,3,2] with (sum, sum of b_i*((i mod 8191)+1)) mod
-    2^32 per plane — row i equals host_checksum(y[i], cb[i], cr[i])."""
-    def one(a):
-        flat = a.reshape(a.shape[0], -1).to(torch.int64)
-        w = torch.arange(flat.shape[1], dtype=torch.int64,
-                         device=flat.device) % 8191 + 1
-        return torch.stack([flat.sum(dim=1), (flat * w).sum(dim=1)],
-                           dim=-1) & 0xFFFFFFFF
-
-    v = torch.stack([one(y), one(cb), one(cr)], dim=1)
-    return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(I32)

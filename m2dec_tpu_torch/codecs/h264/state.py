@@ -4,9 +4,10 @@ reference-frame pool.
 Phase B has no weights. What it carries is the constant tables of the
 JAX package (intra mode matrices and index tables, the quarter-pel
 plane table, the deblocking alpha/beta/tc0 tables) and the pool of
-reconstructed reference frames. Both are built here from the JAX
-package's numpy constants and host frames, so the two packages compute
-from identical state.
+reconstructed reference frames. Both are built here from the port's
+copies of the JAX package's numpy constants (``plan_host``,
+``tables``) and its host frames, so the two packages compute from
+identical state.
 """
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ import functools
 import numpy as np
 import torch
 
-from . import host
+from . import plan_host as host
+from . import tables
 
 
 def tables_to_torch(device) -> dict:
@@ -38,7 +40,7 @@ def tables_to_torch(device) -> dict:
     def tab(tb):
         return t(np.stack([np.asarray(a, np.int32) for a in tb]))
 
-    T = host.tables
+    T = tables
     return {
         "i4_mat": mat(host._I4_MAT),
         "i8_mat": mat(host._I8_MAT),

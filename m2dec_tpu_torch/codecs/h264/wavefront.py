@@ -17,17 +17,61 @@ kernel in ``wavefront_kernels``.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import host
+from .plan_host import _ZORDER
 from .state import device_tables
 
 I32 = torch.int32
 
-get_geom = host.get_geom
-ML, MR, MT, MB_ = host.WF_MARGINS_Y
-MLC, MRC, MTC, MBC = host.WF_MARGINS_C
+#: bottom margins are 8 larger than strictly needed by the scan windows:
+#: the Pallas kernels load slabs from 8-aligned row bases (8 rows above
+#: the window) and read 8 rows past it
+ML, MR, MT, MB_ = 48, 64, 16, 24       # luma margins
+MLC, MRC, MTC, MBC = 24, 16, 8, 16     # chroma margins
+
+
+@functools.lru_cache(maxsize=32)
+def get_geom(mb_w, mb_h):
+    """Host-side skew geometry for one picture shape."""
+    nd = mb_w + 2 * mb_h - 2
+    n = mb_w * mb_h
+    mbymin = np.maximum(0, -(-(np.arange(nd) - mb_w + 1) // 2))
+    mbymax = np.minimum(mb_h - 1, np.arange(nd) // 2)
+    lmax = int((mbymax - mbymin + 1).max())
+    mby0 = np.minimum(mbymin, mb_h - lmax + 1).astype(np.int32)
+    lanes = mby0[:, None] + np.arange(lmax)[None, :]   # [nd, L] mby
+    mbx = np.arange(nd)[:, None] - 2 * lanes
+    valid = (mbx >= 0) & (mbx < mb_w) & (lanes < mb_h)
+    lane2mb = np.where(valid, lanes * mb_w + mbx, n).astype(np.int32)
+    # skew/unskew tile index tables
+    dblk = np.arange(nd)[None, :]
+    mbyv = np.arange(mb_h)[:, None]
+    sx = dblk - 2 * mbyv
+    gidx = np.where((sx >= 0) & (sx < mb_w), mbyv * mb_w + sx,
+                    n).astype(np.int32)                 # [mb_h, nd]
+    uidx = (np.arange(mb_w)[None, :]
+            + 2 * np.arange(mb_h)[:, None]).astype(np.int32)  # [mb_h,mb_w]
+    d = np.arange(nd, dtype=np.int32)
+    bases = {
+        # intra slabs: [Lmax*16+1, 57] luma / [Lmax*8+1, 25] chroma
+        "irY": mby0 * 16 + (MT - 1), "icY": d * 16 + (ML - 33),
+        "irC": mby0 * 8 + (MTC - 1), "icC": d * 8 + (MLC - 17),
+        # deblock own slabs: [Lmax*16, 20] luma / [Lmax*8, 10] chroma
+        "orY": mby0 * 16 + MT, "ocY": d * 16 + (ML - 4),
+        "orC": mby0 * 8 + MTC, "occ": d * 8 + (MLC - 2),
+        # deblock top slabs: [Lmax*16, 16] luma / [Lmax*8, 8] chroma
+        "trY": mby0 * 16, "tcY": d * 16 + (ML - 32),
+        "trC": mby0 * 8, "tcC": d * 8 + (MLC - 16),
+    }
+    return {"nd": nd, "lmax": lmax, "lane2mb": lane2mb, "gidx": gidx,
+            "uidx": uidx, "mb_h": mb_h,
+            "bases": {k: v.astype(np.int32)
+                      for k, v in bases.items()}}
 
 INTRA_LUMA_KEYS = ("kind", "res_y", "i4_modes", "i4_avail", "i16_mode",
                    "mb_avail")
@@ -146,7 +190,7 @@ def intra_luma_compute(Ty, P, has_i8, tabs):
     T4 = Ty.clone()
     i4m = P["i4_modes"]
     i4a = P["i4_avail"]
-    for oy, ox in host._ZORDER:
+    for oy, ox in _ZORDER:
         blk = (oy >> 2) * 4 + (ox >> 2)
         out = intra4_modes(T4[:, 1 + oy : 5 + oy, ox],
                            T4[:, oy, 1 + ox : 9 + ox], T4[:, oy, ox],

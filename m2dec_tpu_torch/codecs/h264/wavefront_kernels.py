@@ -65,7 +65,7 @@ def _meta(P, key, n, dev, tail=()):
 def _check_device(plane):
     """The kernels' device. Builds the kernel library first, so that a
     missing source or compiler raises before anything else."""
-    _build.load_library()
+    _build.load_library("h264_wavefront")
     if plane.device.type != "cuda":
         raise RuntimeError(
             f"wavefront kernels need CUDA tensors, got {plane.device}")
@@ -77,8 +77,8 @@ def _launch(name, dev, mb_w, mb_h, *args):
     current stream and count the launches; raises on a CUDA error."""
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(_build.load_library(), "h264_" + name)(
-            *args, mb_w, mb_h, stream)
+        fn = getattr(_build.load_library("h264_wavefront"), "h264_" + name)
+        err = fn(*args, mb_w, mb_h, stream)
     if err != 0:
         raise RuntimeError(f"h264_{name}: CUDA launch failed with error "
                            f"{err}")

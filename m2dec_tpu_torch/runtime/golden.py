@@ -1,12 +1,16 @@
-"""Device-side golden-output checksum of one frame.
+"""Device-side checksums of decoded pictures.
 
-The twin of ``m2dec_tpu/runtime/golden.py::device_frame_cks``: over the
-frame's cropped NV12 byte stream b (cropped luma rows, then interleaved
-CbCr rows — the bytes the reference's raw writer emits),
+``device_frame_cks`` is the twin of
+``m2dec_tpu/runtime/golden.py::device_frame_cks``: over the frame's
+cropped NV12 byte stream b (cropped luma rows, then interleaved CbCr
+rows — the bytes the reference's raw writer emits),
 
     cks(frame) = (sum(b_i) mod 2^32, sum(b_i * ((i mod 8191) + 1)) mod 2^32)
 
 computed on the device in int64, so only two numbers leave it.
+``frame_checksums`` is the twin of the JAX package's per-picture
+``_jitted_checksum`` (H.264 ``reconstruct.py``), for any codec's
+[N, ...] plane stacks.
 """
 
 from __future__ import annotations
@@ -29,3 +33,18 @@ def device_frame_cks(y, cb, cr, crop) -> tuple[int, int]:
     out = torch.stack([b.sum(), (b * (wv % 8191 + 1)).sum()]) & 0xFFFFFFFF
     s, ws = out.tolist()
     return int(s), int(ws)
+
+
+def frame_checksums(y, cb, cr):
+    """Per-picture checksums of [N,...] uint8 plane stacks on the
+    device: int32 [N,3,2] with (sum, sum of b_i*((i mod 8191)+1)) mod
+    2^32 per plane — row i equals host_checksum(y[i], cb[i], cr[i])."""
+    def one(a):
+        flat = a.reshape(a.shape[0], -1).to(torch.int64)
+        w = torch.arange(flat.shape[1], dtype=torch.int64,
+                         device=flat.device) % 8191 + 1
+        return torch.stack([flat.sum(dim=1), (flat * w).sum(dim=1)],
+                           dim=-1) & 0xFFFFFFFF
+
+    v = torch.stack([one(y), one(cb), one(cr)], dim=1)
+    return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32)

@@ -2,7 +2,8 @@
 CPU: frames, order and error containment identical to the serial
 decoder (as tests/test_turbo.py holds the JAX twin to), the device
 checksum against host_checksum, and a fresh interpreter showing that
-the port decodes without importing jax."""
+the port decodes H.264 and MPEG-2 without importing jax or any module
+of m2dec_tpu."""
 
 import pathlib
 import subprocess
@@ -21,18 +22,13 @@ from streamgen.h264_enc import (  # noqa: E402
     H264HighGen,
     H264MmcoGen,
 )
+from streamgen.mpeg2_enc import Mpeg2StreamGen  # noqa: E402
 
 from m2dec_tpu.codecs.h264.decoder import H264Decoder  # noqa: E402
 from m2dec_tpu.codecs.h264.reconstruct import host_checksum  # noqa: E402
-from m2dec_tpu.native import load_h264  # noqa: E402
-from m2dec_tpu_torch.codecs.h264.reconstruct import (  # noqa: E402
-    BatchedPhaseB,
-    frame_checksums,
-)
+from m2dec_tpu_torch.codecs.h264.reconstruct import BatchedPhaseB  # noqa: E402,E501
+from m2dec_tpu_torch.runtime.golden import frame_checksums  # noqa: E402
 from m2dec_tpu_torch.runtime.turbo import TurboH264Decoder  # noqa: E402
-
-pytestmark = pytest.mark.skipif(load_h264() is None,
-                                reason="native toolchain unavailable")
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
@@ -141,19 +137,35 @@ def test_torch_golden_frame_checksum(crop):
 
 def test_torch_port_never_imports_jax(tmp_path):
     """In a fresh interpreter (the test process itself has jax loaded by
-    conftest), the port decodes a 48x32 stream and jax stays out."""
-    stream = tmp_path / "s.264"
-    stream.write_bytes(_b_stream())
+    conftest), the port imports every one of its modules and decodes a
+    48x32 H.264 and an 80x48 MPEG-2 stream; neither jax nor any module
+    of m2dec_tpu is loaded."""
+    h264 = tmp_path / "s.264"
+    h264.write_bytes(_b_stream())
+    m2v = tmp_path / "s.m2v"
+    m2v.write_bytes(Mpeg2StreamGen(80, 48, seed=11).generate("IPPBPBB"))
     code = (
-        "import sys\n"
+        "import importlib, pkgutil, sys\n"
         "import numpy as np\n"
-        "from m2dec_tpu_torch.runtime.turbo import TurboH264Decoder\n"
-        f"data = open({str(stream)!r}, 'rb').read()\n"
+        "import m2dec_tpu_torch\n"
+        "for m in pkgutil.walk_packages(m2dec_tpu_torch.__path__,\n"
+        "                               'm2dec_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from m2dec_tpu_torch.runtime.turbo import (TurboH264Decoder,\n"
+        "                                           TurboMpeg2Decoder)\n"
+        f"data = open({str(h264)!r}, 'rb').read()\n"
         "frames = TurboH264Decoder(data, batch=4, device='cpu')"
         ".decode_all()\n"
         "assert len(frames) == 9, len(frames)\n"
         "assert all(np.asarray(f.y).shape == (32, 48) for f in frames)\n"
-        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        f"data = open({str(m2v)!r}, 'rb').read()\n"
+        "frames = TurboMpeg2Decoder(data, batch=3, device='cpu')"
+        ".decode_all()\n"
+        "assert len(frames) == 6, len(frames)\n"
+        "assert all(np.asarray(f.y).shape == (48, 80) for f in frames)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m == 'm2dec_tpu'\n"
+        "       or m.startswith(('jax.', 'm2dec_tpu.'))]\n"
+        "assert not bad, bad\n"
         "print('ok')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
