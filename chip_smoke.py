@@ -76,6 +76,9 @@ REPLACES = {
     "deblock_chroma": "m2dec_tpu/codecs/h264/pallas_wavefront.py:237",
     "idct8x8": "m2dec_tpu/kernels/pallas_idct.py:30",
 }
+#: the kernels that run a pass in one launch (one CTA per MB row, progress
+#: flags); the other wavefront kernels launch once per anti-diagonal
+ROW_KERNELS = ("intra_luma", "deblock_luma")
 #: seconds after which the optional second reference picture is skipped
 REF_PIC1_BUDGET_S = 500
 
@@ -338,6 +341,13 @@ def run(dev, procs, t_start):
     if idle:
         raise RuntimeError(f"kernels not launched on the H.264 main path: "
                            f"{idle}")
+    # the row-schedule kernels launch once per pass, one pass per picture
+    not_once = {k: launches[k] for k in ROW_KERNELS
+                if launches[k] != len(turbo)}
+    if not_once:
+        raise RuntimeError(f"row-schedule kernels launched {not_once} "
+                           f"times for {len(turbo)} pictures, want once "
+                           f"per picture")
     phase(2, f"H.264 main path: TurboH264Decoder {W}x{H} {PATTERN} batch "
              f"{BATCH}: {len(turbo)} frames in {main_s:.2f} s; launches "
              f"{json.dumps(launches)}")
@@ -385,6 +395,7 @@ def run(dev, procs, t_start):
 
     # kernel wrappers vs plain versions on the main path's own inputs
     errs = {k: 0 for k in REPLACES}
+    intra_out = {}
     for k in (0, 2):
         y, cb, cr, P, has_i8 = captured[k]
         want_y = WF.intra_luma_plain(y, P, has_i8, mb_w, mb_h)
@@ -392,6 +403,7 @@ def run(dev, procs, t_start):
         errs["intra_luma"] = max(errs["intra_luma"],
                                  max_abs_err(got_y, want_y))
         want_c = WF.intra_chroma_plain(cb, cr, P, mb_w, mb_h)
+        intra_out[k] = (want_y, want_c)
         got_c = WK.intra_chroma(cb.clone(), cr.clone(), P, mb_w, mb_h)
         errs["intra_chroma"] = max(errs["intra_chroma"],
                                    max_abs_err(got_c[0], want_c[0]),
@@ -609,32 +621,49 @@ def run(dev, procs, t_start):
         timed(lambda: turbo_run(TurboMpeg2Decoder, m2data))
         for _ in range(3)) / BATCH
 
-    y, cb, cr, P, has_i8 = captured[0]
-    iy = WF.intra_luma_plain(y, P, has_i8, mb_w, mb_h)
-    icb, icr = WF.intra_chroma_plain(cb, cr, P, mb_w, mb_h)
-    passes = {
-        "intra_luma": ((WK.intra_luma, WF.intra_luma_plain),
-                       lambda: (y.clone(), P, has_i8, mb_w, mb_h)),
-        "intra_chroma": ((WK.intra_chroma, WF.intra_chroma_plain),
-                         lambda: (cb.clone(), cr.clone(), P, mb_w, mb_h)),
-        "deblock_luma": ((WK.deblock_luma, WF.deblock_luma_plain),
-                         lambda: (iy.clone(), P, mb_w, mb_h)),
-        "deblock_chroma": ((WK.deblock_chroma, WF.deblock_chroma_plain),
-                           lambda: (icb.clone(), icr.clone(), P, mb_w,
-                                    mb_h)),
-    }
+    def pass_inputs(k):
+        """Each pass's kernel, plain version and inputs on captured
+        picture k (the deblock passes on its intra output)."""
+        y, cb, cr, P, has_i8 = captured[k]
+        iy, (icb, icr) = intra_out[k]
+        return {
+            "intra_luma": ((WK.intra_luma, WF.intra_luma_plain),
+                           lambda: (y.clone(), P, has_i8, mb_w, mb_h)),
+            "intra_chroma": ((WK.intra_chroma, WF.intra_chroma_plain),
+                             lambda: (cb.clone(), cr.clone(), P, mb_w,
+                                      mb_h)),
+            "deblock_luma": ((WK.deblock_luma, WF.deblock_luma_plain),
+                             lambda: (iy.clone(), P, mb_w, mb_h)),
+            "deblock_chroma": ((WK.deblock_chroma,
+                                WF.deblock_chroma_plain),
+                               lambda: (icb.clone(), icr.clone(), P, mb_w,
+                                        mb_h)),
+        }
+
+    # picture 0 (I): kernel median of 20, plain once; picture 2 (inter, 5 %
+    # intra MBs): kernel median of 20
+    passes = pass_inputs(0)
     times = {k: (event_ms(fk, mk_, 20), event_ms(fp, mk_, 1))
              for k, ((fk, fp), mk_) in passes.items()}
+    inter_ms = {k: event_ms(fk, mk_, 20)
+                for k, ((fk, _), mk_) in pass_inputs(2).items()}
+    inter_ms["idct8x8"] = None
+    y, cb, cr, P, has_i8 = captured[0]
     times["idct8x8"] = (event_ms(IK.idct8x8_blocks, lambda: (coef,), 20),
                         event_ms(IK.idct8x8_blocks_plain, lambda: (coef,),
                                  20))
 
     # bounds: bytes each pass must move (its inputs read once, its planes
     # written once) over HBM, and its operations over the peak rate. A
-    # wavefront has a third: its diagonals times the least time of one
-    # dependent step between CTAs (handoff_step_ms); beside it, the
-    # floor of this design, one launch per diagonal (launch_step_ms)
+    # wavefront has a third, its schedule's dependency floor: the
+    # handoffs between CTAs on the schedule's critical path times the
+    # least time of one (handoff_step_ms). Per-diagonal kernels hand off
+    # once per diagonal (nd); the row-schedule kernels once per MB row
+    # after the first (mb_h - 1). Beside it, the floor of one launch per
+    # diagonal (launch_step_ms)
     nd = WK._n_diagonals(mb_w, mb_h)
+    handoffs = {k: mb_h - 1 if k in ROW_KERNELS else nd
+                for k in WK.LAUNCHES}
     step_ms = handoff_step_ms(procs, nd, dev)
     launch_ms = launch_step_ms(nd, dev)
     keys = {"intra_luma": WF.INTRA_LUMA_KEYS + WF.I8_KEYS,
@@ -651,7 +680,7 @@ def run(dev, procs, t_start):
                   * sum(t.numel() for t in planes[k]) / OPS_S)
         bounds[k] = (max(bytes_ms, ops_ms),
                      "bytes" if bytes_ms >= ops_ms else "operations",
-                     nd * step_ms)
+                     handoffs[k] * step_ms)
     nblk = coef.numel() // 64
     idct_bytes_ms = 1e3 * nblk * (128 + 256) / HBM_BYTES_S
     idct_ops_ms = 1e3 * nblk * IDCT_OPS_PER_BLOCK / OPS_S
@@ -684,16 +713,20 @@ def run(dev, procs, t_start):
              f"share {busy_ms / (1e3 * prof_s):.3f}); largest device items, "
              f"ms/picture: " + json.dumps(
                  {k: round(v / len(items), 4) for k, v in top}))
-    phase(7, f"kernel ms [kernel, plain, bound, bound_by, dependency bound] "
-             f"(CUDA events; wavefront passes on H.264 picture 0, kernel "
-             f"median of 20 / plain 1; IDCT over the batch's {nblk} blocks, "
-             f"median of 20 each; dependency bound {nd} diagonals x "
-             f"{1e3 * step_ms:.3f} us, one flag handoff between CTAs; one "
-             f"launch per diagonal, graph-replayed, {1e3 * launch_ms:.3f} "
-             f"us, {nd * launch_ms:.4f} ms a pass): " + json.dumps(
-                 {k: [round(times[k][0], 4), round(times[k][1], 3),
-                      round(bounds[k][0], 5), bounds[k][1],
-                      None if bounds[k][2] is None
+    phase(7, f"kernel ms [kernel on picture 0, kernel on picture 2, plain, "
+             f"bound, bound_by, dependency floor] (CUDA events; wavefront "
+             f"passes on H.264 pictures 0 (I) and 2 (inter), kernel median of "
+             f"20, plain once on picture 0; IDCT over the batch's {nblk} "
+             f"blocks, median of 20 each; dependency floor of each "
+             f"schedule: its handoffs between CTAs on the critical path "
+             f"({json.dumps(handoffs)}) x {1e3 * step_ms:.3f} us, one flag "
+             f"handoff; one launch per diagonal, graph-replayed, "
+             f"{1e3 * launch_ms:.3f} us, {nd * launch_ms:.4f} ms a pass): "
+             + json.dumps(
+                 {k: [round(times[k][0], 4),
+                      None if inter_ms[k] is None else round(inter_ms[k], 4),
+                      round(times[k][1], 3), round(bounds[k][0], 5),
+                      bounds[k][1], None if bounds[k][2] is None
                       else round(bounds[k][2], 4)] for k in REPLACES}))
 
     bad = sorted(m for m in sys.modules
@@ -707,7 +740,7 @@ def run(dev, procs, t_start):
          "max_abs_err": errs[k], "ms": times[k][0],
          "plain_ms": times[k][1], "bound_ms": bounds[k][0],
          "bound_by": bounds[k][1], "library_ms": None,
-         "dependency_ms": bounds[k][2]}
+         "dependency_ms": bounds[k][2], "inter_ms": inter_ms[k]}
         for k in REPLACES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

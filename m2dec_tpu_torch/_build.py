@@ -33,9 +33,9 @@ _INT = ctypes.c_int
 #: stream are c_void_p, so ctypes never truncates them to 32 bits.
 LIBRARIES = {
     "h264_wavefront": {
-        "h264_intra_luma": [_VP] * 11 + [_INT] * 3 + [_VP],
+        "h264_intra_luma": [_VP] * 12 + [_INT] * 3 + [_VP],
         "h264_intra_chroma": [_VP] * 6 + [_INT] * 2 + [_VP],
-        "h264_deblock_luma": [_VP] * 7 + [_INT] * 2 + [_VP],
+        "h264_deblock_luma": [_VP] * 8 + [_INT] * 2 + [_VP],
         "h264_deblock_chroma": [_VP] * 8 + [_INT] * 2 + [_VP],
     },
     "mpeg2_idct": {

@@ -9,8 +9,14 @@ wrapper runs its plain PyTorch version (``wavefront.py``) only for
 tensors that lie on the CPU; for CUDA tensors it launches the kernel or
 raises, never falling back.
 
-``LAUNCHES`` counts kernel launches per kernel (one launch per
-anti-diagonal of a pass), so a run can show it went through them.
+The two luma kernels run a pass in ONE launch: one CTA per MB row at a
+time, rows taken by ticket, each MB waiting on a per-row progress flag
+for its top-right neighbour (``_row_progress`` is their zeroed scratch).
+The two chroma kernels launch once per anti-diagonal.
+
+``LAUNCHES`` counts kernel launches per kernel (1 per luma pass, one
+per non-empty anti-diagonal of a chroma pass), so a run can show it
+went through them.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ def reset_launch_counts():
 
 @functools.lru_cache(maxsize=16)
 def _n_diagonals(mb_w, mb_h):
-    """Launches per pass: the non-empty anti-diagonals."""
+    """Launches per chroma pass: the non-empty anti-diagonals."""
     n = 0
     for d in range(mb_w + 2 * mb_h - 2):
         lo = max(0, (d - mb_w + 2) // 2)
@@ -43,12 +49,14 @@ def _n_diagonals(mb_w, mb_h):
     return n
 
 
-def _plane(t, shape, name):
+def _plane(t, shape, name, align=1):
     if t.dtype != torch.uint8 or tuple(t.shape) != shape:
         raise ValueError(f"{name}: want uint8 {shape}, got {t.dtype} "
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must start on a {align}-byte boundary")
     return t.data_ptr()
 
 
@@ -72,9 +80,15 @@ def _check_device(plane):
     return plane.device
 
 
-def _launch(name, dev, mb_w, mb_h, *args):
-    """Launch one pass (one kernel launch per diagonal) on ``dev``'s
-    current stream and count the launches; raises on a CUDA error."""
+def _row_progress(dev, mb_h):
+    """The row kernels' scratch on ``dev``'s current stream: int32
+    [mb_h + 1] zeros, the MBs done per row, then the row ticket."""
+    return torch.zeros(mb_h + 1, dtype=torch.int32, device=dev)
+
+
+def _launch(name, dev, mb_w, mb_h, *args, launches=1):
+    """Launch one pass on ``dev``'s current stream and count its
+    ``launches``; raises on a CUDA error."""
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         fn = getattr(_build.load_library("h264_wavefront"), "h264_" + name)
@@ -82,7 +96,7 @@ def _launch(name, dev, mb_w, mb_h, *args):
     if err != 0:
         raise RuntimeError(f"h264_{name}: CUDA launch failed with error "
                            f"{err}")
-    LAUNCHES[name] += _n_diagonals(mb_w, mb_h)
+    LAUNCHES[name] += launches
 
 
 def intra_luma(y, P, has_i8, mb_w, mb_h):
@@ -96,10 +110,12 @@ def intra_luma(y, P, has_i8, mb_w, mb_h):
         ("kind", ()), ("res_y", (16, 16)), ("i4_modes", (16,)),
         ("i4_avail", (16,)), ("i8_modes", (4,)), ("i8_avail", (4,)),
         ("i16_mode", ()), ("mb_avail", ()))]
+    progress = _row_progress(dev, mb_h)
     _launch("intra_luma", dev, mb_w, mb_h,
-            _plane(y, (mb_h * 16, mb_w * 16), "y"),
+            _plane(y, (mb_h * 16, mb_w * 16), "y", align=4),
             *(t.data_ptr() for t in meta), tabs["i4_tab"].data_ptr(),
-            tabs["i8_tab"].data_ptr(), int(bool(has_i8)))
+            tabs["i8_tab"].data_ptr(), progress.data_ptr(),
+            int(bool(has_i8)))
     return y
 
 
@@ -113,7 +129,8 @@ def intra_chroma(cb, cr, P, mb_w, mb_h):
         ("kind", ()), ("res_c", (2, 8, 8)), ("chroma_mode", ()),
         ("mb_avail", ()))]
     _launch("intra_chroma", dev, mb_w, mb_h, _plane(cb, shape, "cb"),
-            _plane(cr, shape, "cr"), *(t.data_ptr() for t in meta))
+            _plane(cr, shape, "cr"), *(t.data_ptr() for t in meta),
+            launches=_n_diagonals(mb_w, mb_h))
     return cb, cr
 
 
@@ -131,9 +148,9 @@ def deblock_luma(y, P, mb_w, mb_h):
     if y.device.type == "cpu":
         return WF.deblock_luma_plain(y, P, mb_w, mb_h)
     dev = _check_device(y)
-    args = _deb_args(P, mb_w * mb_h, dev)
+    args = _deb_args(P, mb_w * mb_h, dev) + [_row_progress(dev, mb_h)]
     _launch("deblock_luma", dev, mb_w, mb_h,
-            _plane(y, (mb_h * 16, mb_w * 16), "y"),
+            _plane(y, (mb_h * 16, mb_w * 16), "y", align=4),
             *(t.data_ptr() for t in args))
     return y
 
@@ -145,7 +162,8 @@ def deblock_chroma(cb, cr, P, mb_w, mb_h):
     dev = _check_device(cb)
     shape, args = (mb_h * 8, mb_w * 8), _deb_args(P, mb_w * mb_h, dev)
     _launch("deblock_chroma", dev, mb_w, mb_h, _plane(cb, shape, "cb"),
-            _plane(cr, shape, "cr"), *(t.data_ptr() for t in args))
+            _plane(cr, shape, "cr"), *(t.data_ptr() for t in args),
+            launches=_n_diagonals(mb_w, mb_h))
     return cb, cr
 
 

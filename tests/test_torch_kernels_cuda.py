@@ -1,9 +1,10 @@
 """The CUDA kernels of m2dec_tpu_torch against their plain PyTorch
 versions, on the card: the four H.264 wavefront kernels on random plans
-and the MPEG-2 8x8 IDCT on random blocks and on MPEG-2 streams; exact
-equality (integer decode, tolerance 0). The tests marked ``cuda`` skip
-on a machine without a GPU. CPU tests show the kernel dispatch cannot
-fall back to the plain version."""
+(the two row-schedule luma kernels also on all-intra and zero-strength
+plans, and 20 times over), and the MPEG-2 8x8 IDCT on random blocks and
+on MPEG-2 streams; exact equality (integer decode, tolerance 0). The
+tests marked ``cuda`` skip on a machine without a GPU. CPU tests show
+the kernel dispatch cannot fall back to the plain version."""
 
 import pathlib
 import sys
@@ -23,6 +24,9 @@ sys.path.insert(0, str(pathlib.Path(__file__).parent))
 
 #: (mb_w, mb_h): tiny, odd, CIF and 1080p geometries
 GEOMS = [(4, 2), (5, 3), (11, 9), (120, 68)]
+#: the row-schedule (luma) kernels also take one MB column, and more
+#: rows than the card has SMs (the ticket loop)
+ROW_GEOMS = GEOMS + [(1, 9), (3, 150)]
 
 
 @pytest.fixture
@@ -32,8 +36,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(mb_w, mb_h, seed, dev):
-    P = torch_plan(rand_wavefront_plan(mb_w, mb_h, seed, wide=True), dev)
+def _inputs(mb_w, mb_h, seed, dev, kinds=None):
+    P = torch_plan(rand_wavefront_plan(mb_w, mb_h, seed, wide=True,
+                                       kinds=kinds), dev)
     y, cb, cr = (torch.from_numpy(a).to(dev)
                  for a in rand_planes(mb_w, mb_h, seed))
     return P, y, cb, cr
@@ -47,7 +52,7 @@ def _same(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mb_w,mb_h", GEOMS)
+@pytest.mark.parametrize("mb_w,mb_h", ROW_GEOMS)
 @pytest.mark.parametrize("has_i8", [True, False])
 def test_intra_luma_kernel(cuda, mb_w, mb_h, has_i8):
     P, y, _, _ = _inputs(mb_w, mb_h, 1, cuda)
@@ -55,8 +60,20 @@ def test_intra_luma_kernel(cuda, mb_w, mb_h, has_i8):
     n0 = WK.LAUNCHES["intra_luma"]
     got = WK.intra_luma(y.clone(), P, has_i8, mb_w, mb_h)
     torch.cuda.synchronize()
-    assert WK.LAUNCHES["intra_luma"] > n0
+    assert WK.LAUNCHES["intra_luma"] == n0 + 1
     _same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_i8", [True, False])
+def test_intra_luma_kernel_all_intra(cuda, has_i8):
+    """Every MB intra (kinds 1-3) at 1080p: no MB skips its wait, the
+    longest chain of the row schedule."""
+    mb_w, mb_h = 120, 68
+    P, y, _, _ = _inputs(mb_w, mb_h, 6, cuda, kinds=(1, 2, 3))
+    want = WF.intra_luma_plain(y, P, has_i8, mb_w, mb_h)
+    _same(WK.intra_luma(y.clone(), P, has_i8, mb_w, mb_h), want)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
@@ -71,13 +88,49 @@ def test_intra_chroma_kernel(cuda, mb_w, mb_h):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mb_w,mb_h", GEOMS)
+@pytest.mark.parametrize("mb_w,mb_h", ROW_GEOMS)
 def test_deblock_luma_kernel(cuda, mb_w, mb_h):
     P, y, _, _ = _inputs(mb_w, mb_h, 3, cuda)
     want = WF.deblock_luma_plain(y, P, mb_w, mb_h)
+    n0 = WK.LAUNCHES["deblock_luma"]
     got = WK.deblock_luma(y.clone(), P, mb_w, mb_h)
     torch.cuda.synchronize()
+    assert WK.LAUNCHES["deblock_luma"] == n0 + 1
     _same(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mb_w,mb_h", [(11, 9), (120, 68)])
+def test_deblock_luma_kernel_zero_strength(cuda, mb_w, mb_h):
+    """All edges of strength 0: every MB takes the skip path and the
+    plane comes back unchanged, as from the plain version."""
+    P, y, _, _ = _inputs(mb_w, mb_h, 7, cuda)
+    P["deb_str"].zero_()
+    P["deb_str4"].zero_()
+    want = WF.deblock_luma_plain(y, P, mb_w, mb_h)
+    _same(want, y)
+    _same(WK.deblock_luma(y.clone(), P, mb_w, mb_h), want)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["intra_luma", "deblock_luma"])
+def test_row_kernels_repeat(cuda, name):
+    """The 1080p random plan through a row-schedule pass 20 times, each
+    run byte-equal to the plain version and 1 launch: a race between
+    CTAs (a missed flag, a stale line of the row above) shows as a run
+    that differs."""
+    mb_w, mb_h = 120, 68
+    P, y, _, _ = _inputs(mb_w, mb_h, 8, cuda)
+    args = (P, True, mb_w, mb_h) if name == "intra_luma" else (P, mb_w,
+                                                               mb_h)
+    want = getattr(WF, name + "_plain")(y, *args)
+    n0 = WK.LAUNCHES[name]
+    outs = [getattr(WK, name)(y.clone(), *args) for _ in range(20)]
+    torch.cuda.synchronize()
+    assert WK.LAUNCHES[name] == n0 + 20
+    for got in outs:
+        _same(got, want)
 
 
 @pytest.mark.cuda

@@ -10,10 +10,12 @@ import torch
 torch.set_num_threads(1)
 
 
-def rand_wavefront_plan(mb_w, mb_h, seed, wide=False):
+def rand_wavefront_plan(mb_w, mb_h, seed, wide=False, kinds=None):
     """Random per-MB intra/deblock metadata (int32 numpy) in the shape of
     tests/test_pallas_kernels.py's plans. wide=True also randomises the
-    availability bits, adds IPCM MBs and switched-off deblock edges."""
+    availability bits, adds IPCM MBs and switched-off deblock edges;
+    kinds, a sequence of MB kinds, redraws every MB's kind from it (the
+    other fields stay those of kinds=None)."""
     n = mb_w * mb_h
     rng = np.random.default_rng(seed)
     P = {
@@ -33,6 +35,8 @@ def rand_wavefront_plan(mb_w, mb_h, seed, wide=False):
         "deb_str4": rng.integers(0, 2, (n, 2)),
         "deb_ab": rng.integers(-4 if wide else 20, 40, (n, 2, 6, 2)),
     }
+    if kinds is not None:
+        P["kind"] = rng.choice(np.asarray(kinds), n)
     return {k: v.astype(np.int32) for k, v in P.items()}
 
 
