@@ -77,8 +77,9 @@ REPLACES = {
     "idct8x8": "m2dec_tpu/kernels/pallas_idct.py:30",
 }
 #: the kernels that run a pass in one launch (one CTA per MB row, progress
-#: flags); the other wavefront kernels launch once per anti-diagonal
-ROW_KERNELS = ("intra_luma", "deblock_luma")
+#: flags): all four wavefront kernels
+ROW_KERNELS = ("intra_luma", "intra_chroma", "deblock_luma",
+               "deblock_chroma")
 #: seconds after which the optional second reference picture is skipped
 REF_PIC1_BUDGET_S = 500
 
@@ -348,9 +349,11 @@ def run(dev, procs, t_start):
         raise RuntimeError(f"row-schedule kernels launched {not_once} "
                            f"times for {len(turbo)} pictures, want once "
                            f"per picture")
+    per_pic = sum(launches[k] for k in ROW_KERNELS) / len(turbo)
     phase(2, f"H.264 main path: TurboH264Decoder {W}x{H} {PATTERN} batch "
              f"{BATCH}: {len(turbo)} frames in {main_s:.2f} s; launches "
-             f"{json.dumps(launches)}")
+             f"{json.dumps(launches)}; {per_pic:g} wavefront launches per "
+             f"picture")
 
     # -- phase 3: H.264 kernels vs plain at full size --------------------
     dec = H264Decoder(native=True, plan_alloc="empty")
@@ -657,13 +660,12 @@ def run(dev, procs, t_start):
     # written once) over HBM, and its operations over the peak rate. A
     # wavefront has a third, its schedule's dependency floor: the
     # handoffs between CTAs on the schedule's critical path times the
-    # least time of one (handoff_step_ms). Per-diagonal kernels hand off
-    # once per diagonal (nd); the row-schedule kernels once per MB row
-    # after the first (mb_h - 1). Beside it, the floor of one launch per
-    # diagonal (launch_step_ms)
-    nd = WK._n_diagonals(mb_w, mb_h)
-    handoffs = {k: mb_h - 1 if k in ROW_KERNELS else nd
-                for k in WK.LAUNCHES}
+    # least time of one (handoff_step_ms): the row-schedule kernels hand
+    # off once per MB row after the first (mb_h - 1). Beside it, the floor
+    # of the schedule they replaced, one launch per anti-diagonal
+    # (launch_step_ms, nd dependent launches a pass)
+    nd = mb_w + 2 * mb_h - 2
+    handoffs = {k: mb_h - 1 for k in ROW_KERNELS}
     step_ms = handoff_step_ms(procs, nd, dev)
     launch_ms = launch_step_ms(nd, dev)
     keys = {"intra_luma": WF.INTRA_LUMA_KEYS + WF.I8_KEYS,

@@ -9,19 +9,17 @@ wrapper runs its plain PyTorch version (``wavefront.py``) only for
 tensors that lie on the CPU; for CUDA tensors it launches the kernel or
 raises, never falling back.
 
-The two luma kernels run a pass in ONE launch: one CTA per MB row at a
+All four kernels run a pass in ONE launch: one CTA per MB row at a
 time, rows taken by ticket, each MB waiting on a per-row progress flag
-for its top-right neighbour (``_row_progress`` is their zeroed scratch).
-The two chroma kernels launch once per anti-diagonal.
+for the MBs of the row above that it reads (``_row_progress`` is their
+zeroed scratch). The planes must start on a 4-byte boundary: the kernels
+move samples in 4-byte words.
 
-``LAUNCHES`` counts kernel launches per kernel (1 per luma pass, one
-per non-empty anti-diagonal of a chroma pass), so a run can show it
-went through them.
+``LAUNCHES`` counts kernel launches per kernel (1 per pass), so a run
+can show it went through them.
 """
 
 from __future__ import annotations
-
-import functools
 
 import torch
 
@@ -39,24 +37,14 @@ def reset_launch_counts():
         LAUNCHES[k] = 0
 
 
-@functools.lru_cache(maxsize=16)
-def _n_diagonals(mb_w, mb_h):
-    """Launches per chroma pass: the non-empty anti-diagonals."""
-    n = 0
-    for d in range(mb_w + 2 * mb_h - 2):
-        lo = max(0, (d - mb_w + 2) // 2)
-        n += min(mb_h - 1, d // 2) >= lo
-    return n
-
-
-def _plane(t, shape, name, align=1):
+def _plane(t, shape, name):
     if t.dtype != torch.uint8 or tuple(t.shape) != shape:
         raise ValueError(f"{name}: want uint8 {shape}, got {t.dtype} "
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % align:
-        raise ValueError(f"{name} must start on a {align}-byte boundary")
+    if t.data_ptr() % 4:
+        raise ValueError(f"{name} must start on a 4-byte boundary")
     return t.data_ptr()
 
 
@@ -86,9 +74,9 @@ def _row_progress(dev, mb_h):
     return torch.zeros(mb_h + 1, dtype=torch.int32, device=dev)
 
 
-def _launch(name, dev, mb_w, mb_h, *args, launches=1):
-    """Launch one pass on ``dev``'s current stream and count its
-    ``launches``; raises on a CUDA error."""
+def _launch(name, dev, mb_w, mb_h, *args):
+    """Launch one pass on ``dev``'s current stream and count it; raises
+    on a CUDA error."""
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         fn = getattr(_build.load_library("h264_wavefront"), "h264_" + name)
@@ -96,7 +84,7 @@ def _launch(name, dev, mb_w, mb_h, *args, launches=1):
     if err != 0:
         raise RuntimeError(f"h264_{name}: CUDA launch failed with error "
                            f"{err}")
-    LAUNCHES[name] += launches
+    LAUNCHES[name] += 1
 
 
 def intra_luma(y, P, has_i8, mb_w, mb_h):
@@ -112,7 +100,7 @@ def intra_luma(y, P, has_i8, mb_w, mb_h):
         ("i16_mode", ()), ("mb_avail", ()))]
     progress = _row_progress(dev, mb_h)
     _launch("intra_luma", dev, mb_w, mb_h,
-            _plane(y, (mb_h * 16, mb_w * 16), "y", align=4),
+            _plane(y, (mb_h * 16, mb_w * 16), "y"),
             *(t.data_ptr() for t in meta), tabs["i4_tab"].data_ptr(),
             tabs["i8_tab"].data_ptr(), progress.data_ptr(),
             int(bool(has_i8)))
@@ -127,10 +115,10 @@ def intra_chroma(cb, cr, P, mb_w, mb_h):
     n, shape = mb_w * mb_h, (mb_h * 8, mb_w * 8)
     meta = [_meta(P, k, n, dev, tail) for k, tail in (
         ("kind", ()), ("res_c", (2, 8, 8)), ("chroma_mode", ()),
-        ("mb_avail", ()))]
-    _launch("intra_chroma", dev, mb_w, mb_h, _plane(cb, shape, "cb"),
-            _plane(cr, shape, "cr"), *(t.data_ptr() for t in meta),
-            launches=_n_diagonals(mb_w, mb_h))
+        ("mb_avail", ()))] + [_row_progress(dev, mb_h)]
+    _launch("intra_chroma", dev, mb_w, mb_h,
+            _plane(cb, shape, "cb"), _plane(cr, shape, "cr"),
+            *(t.data_ptr() for t in meta))
     return cb, cr
 
 
@@ -150,7 +138,7 @@ def deblock_luma(y, P, mb_w, mb_h):
     dev = _check_device(y)
     args = _deb_args(P, mb_w * mb_h, dev) + [_row_progress(dev, mb_h)]
     _launch("deblock_luma", dev, mb_w, mb_h,
-            _plane(y, (mb_h * 16, mb_w * 16), "y", align=4),
+            _plane(y, (mb_h * 16, mb_w * 16), "y"),
             *(t.data_ptr() for t in args))
     return y
 
@@ -160,10 +148,11 @@ def deblock_chroma(cb, cr, P, mb_w, mb_h):
     if cb.device.type == "cpu":
         return WF.deblock_chroma_plain(cb, cr, P, mb_w, mb_h)
     dev = _check_device(cb)
-    shape, args = (mb_h * 8, mb_w * 8), _deb_args(P, mb_w * mb_h, dev)
-    _launch("deblock_chroma", dev, mb_w, mb_h, _plane(cb, shape, "cb"),
-            _plane(cr, shape, "cr"), *(t.data_ptr() for t in args),
-            launches=_n_diagonals(mb_w, mb_h))
+    shape = (mb_h * 8, mb_w * 8)
+    args = _deb_args(P, mb_w * mb_h, dev) + [_row_progress(dev, mb_h)]
+    _launch("deblock_chroma", dev, mb_w, mb_h,
+            _plane(cb, shape, "cb"), _plane(cr, shape, "cr"),
+            *(t.data_ptr() for t in args))
     return cb, cr
 
 

@@ -16,50 +16,93 @@
 // outside the picture read as 0 and are never written, which is what the
 // skewed layout's zero margins and dead cells give the plain version.
 //
-// Dependencies. MB (mbx, mby) reads or writes only MBs on anti-diagonals
-// d-1, d-2 and d-3 of d = mbx + 2*mby (left and top-right on d-1, top on
-// d-2, top-left on d-3; deblock writes reach 3 px into the left and top
-// MBs, and the top-right MB's left-edge filter writes columns that this
-// MB's window reads).
+// Dependencies. In the plain version's order, d = mbx + 2*mby, MB (mbx,
+// mby) reads or writes only MBs on anti-diagonals d-1, d-2 and d-3 (left
+// and top-right on d-1, top on d-2, top-left on d-3; deblock writes reach
+// 3 px (luma) or 2 px (chroma) into the left and top MBs, and the
+// top-right MB's left-edge filter writes columns that this MB's window
+// reads).
 //
-// Schedule of the two chroma kernels: one launch per diagonal, one thread
-// block per MB: mby = mby_lo + blockIdx.x, mbx = d - 2*mby. What bounds
-// them: launch latency and dependency depth (nd = mb_w + 2*mb_h - 2
-// dependent launches per pass, 254 at 1080p), not bytes.
+// Schedule (all four kernels): ONE launch per pass, one CTA per MB row at
+// a time. A CTA takes rows by ticket (atomicAdd on progress[mb_h]) until
+// they run out and walks its row left to right. Before MB x of row y
+// reads or writes a pixel of the row above it waits (one lane spinning on
+// an acquire load) until progress[y-1] reaches the count below; after its
+// stores it publishes progress[y] (__syncwarp, then one lane's
+// __threadfence and a strong store: a release). A CTA only waits on a row
+// taken earlier by a CTA that is already running, so the scheme cannot
+// deadlock whatever the residency; a spin that outlasts SPIN_LIMIT cycles
+// traps, so a broken protocol ends the kernel with a CUDA error instead of
+// hanging the card. An MB that touches no pixel (intra: kind 0 or 4;
+// deblock: every edge of strength 0) only publishes, with no fence when
+// the CTA stored nothing since its last one. The wrapper zeroes
+// progress[0..mb_h] before each launch.
 //
-// Schedule of the two luma kernels: ONE launch per pass, one CTA per MB
-// row at a time. A CTA takes rows by ticket (atomicAdd on progress[mb_h])
-// until they run out and walks its row left to right. Before MB x of row
-// y reads or writes a pixel it waits (one lane spinning on an acquire
-// load) until progress[y-1] >= min(x + 2, mb_w), i.e. the top-right MB is
-// done; after its stores it publishes progress[y] = x + 1 (__syncwarp,
-// then one lane's __threadfence and a strong store: a release). A CTA
-// only waits on a row taken earlier by a CTA that is already running, so
-// the scheme cannot deadlock whatever the residency; a spin that outlasts
-// SPIN_LIMIT cycles traps, so a broken protocol ends the kernel with a
-// CUDA error instead of hanging the card. An MB that touches no pixel
-// (intra: kind 0 or 4; deblock: all 8 edges of strength 0) only
-// publishes. The wrapper zeroes progress[0..mb_h] before each launch.
+// What each kernel waits for:
+// - intra luma, deblock luma: progress[y-1] >= min(x + 2, mb_w), i.e. the
+//   top-right MB is done (progress counts MBs done). Intra luma reads the
+//   top-right samples; deblock luma's top strip (rows y0-4..y0-1 of
+//   columns x0..x0+15) is written by MB (x+1, y-1)'s left-edge filter.
+// - deblock chroma: progress[y-1] >= x + 1, where progress counts TILES
+//   STORED and a row stores tile x only once MB x + 1 has filtered (the
+//   left-edge filter of MB x+1 writes tile x's columns 6..7). MB (x, y)
+//   filters its top edge on rows y0-2..y0-1 of columns x0..x0+7, i.e.
+//   tile x of row y-1, which MB (x, y-1) writes and MB (x+1, y-1)'s left
+//   edge writes (column x0+7, reading x0+6). So "tile x of row y-1
+//   stored" is exactly "MB (x+1, y-1) done" (or the row done, for the
+//   last MB): the top-right rule of deblock luma, and what the plain
+//   version's order d = x + 2y gives, since (x+1, y-1) lies on d-1. No
+//   MB of row y-1 touches columns <= x0+7 after that store, and row y+1
+//   writes into tile x of row y only after it is stored.
+// - intra chroma: progress[y-1] >= x + 1 (MB x of the row above done).
+//   Chroma intra prediction reads the corner (y0-1, x0-1), the 8 samples
+//   above (y0-1, x0..x0+7) and the 8 to the left, and writes only its own
+//   tile: no mode reads the top-right MB (the plain version's window is
+//   [9, 9]: corner, top 8, left 8). The corner and the top belong to MBs
+//   (x-1, y-1) and (x, y-1), done once progress[y-1] >= x + 1 (a row
+//   publishes in order); the left is this CTA's previous MB. Nothing else
+//   writes those samples, nor reads this tile before it is published
+//   (MB (x, y+1) waits for x + 1, MB (x+1, y+1) for x + 2). The critical
+//   path is then mb_w + mb_h - 1 MBs (187 at 1080p) instead of
+//   mb_w + 2(mb_h - 1) (254).
 //
-// What bounds the luma kernels: the chain of dependent small steps inside
-// each MB (16 sub-blocks of I4x4, 4 of I8x8, 8 deblocking edges) times the
-// critical path of mb_w + 2*(mb_h - 1) MBs, plus mb_h - 1 handoffs between
-// CTAs; not bytes. So the chain is kept off global memory and shared by
-// two warps. The compute warp waits for the row above, reads the strip
-// above (intra: corner + 16 + 8 samples; deblock: 4 rows x 16) and runs
-// the MB's chain in shared memory and registers. The helper warp stages
-// MB x + 2 (its metadata, residual or edge parameters, and its own
-// samples: nothing else writes those during the pass) into the slot MB x
-// leaves, stores MB x and publishes it, while the compute warp runs
-// MB x + 1; two named barriers per slot hand the slots over. The tables
-// (packed mode-index tables, alpha/beta/tc0) sit in shared memory from
-// CTA start; the left neighbour's columns come from the previous MB's
-// window. The strip above is read through L2 (__ldcg: an L1 line cached
-// earlier can hold stale bytes of a row another CTA wrote during this
-// pass). Sums (DC, I16x16 plane) are warp shuffles.
+// What bounds them: the chain of dependent small steps inside each MB
+// times the critical path, plus mb_h - 1 handoffs between CTAs; not
+// bytes. So the chain is kept off global memory. Samples that another
+// CTA wrote during this pass (the row above) are read through L2 (__ldcg:
+// an L1 line cached earlier can hold stale bytes of a row another CTA
+// wrote during this pass), after the acquire on the flag; an MB's own
+// samples are staged ahead, since no other CTA writes them before it is
+// done. Stores are 4-byte words. Sums (DC, plane) are warp shuffles.
+// - Intra luma, deblock luma and deblock chroma use two warps per CTA.
+//   The compute warp waits for the row above, reads the strip above
+//   (intra luma: corner + 16 + 8 samples; deblock: 4 rows x 16 luma, 2
+//   rows x 8 per chroma plane) and runs the MB's chain (16 sub-blocks of
+//   I4x4, 4 of I8x8, 8 luma edges, or 2 chroma steps) in shared memory
+//   and registers. The helper warp stages MB x + 2 (its metadata,
+//   residual or edge parameters, and its own samples) into a free slot,
+//   stores what MB x finished and publishes it, while the compute warp
+//   runs MB x + 1; named barriers, one id per slot and direction, hand
+//   the slots over. The left neighbour's columns come from the previous
+//   MB's window; the tables (packed mode-index tables, alpha/beta/tc0)
+//   sit in shared memory from CTA start. Deblock chroma keeps a ring of
+//   four slots, since tile x - 1 is stored only after MB x has filtered.
+//   A deblock-chroma step takes all 32 lanes: 2 planes x 8 lines x the
+//   two edges of an axis, which touch disjoint samples. Handing the
+//   stores, the fence and the publication to the helper warp took
+//   deblock chroma from 0.421 to 0.317 ms a pass on a 1080p I picture
+//   (NVIDIA H100 80GB HBM3, 700 W; tools/probe_chroma_helper_warp.py
+//   keeps the one-warp design and times both).
+// - Intra chroma uses one warp per CTA, both planes at once: one
+//   prediction step per MB. The warp stages MB x + 1 into registers
+//   while it runs MB x; each lane holds one 4-byte word of the MB's
+//   samples (plane lane >> 4, row (lane >> 1) & 7, columns
+//   4 * (lane & 1) + 0..3), the left column comes from the previous MB's
+//   words by shuffle.
 //
-// Every entry point returns the first cudaGetLastError() of its launches
-// (0 on success); nothing synchronises and nothing allocates.
+// Every entry point launches its kernel once and returns
+// cudaGetLastError() (0 on success); nothing synchronises and nothing
+// allocates.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -76,11 +119,6 @@ __device__ __forceinline__ int clip3(int v, int lo, int hi) {
 }
 
 __device__ __forceinline__ int clip255(int v) { return clip3(v, 0, 255); }
-
-__device__ __forceinline__ int load_px(const uint8_t* p, int W, int H, int y,
-                                       int x) {
-  return (y >= 0 && y < H && x >= 0 && x < W) ? p[y * W + x] : 0;
-}
 
 // mode values outside 1..n-1 select mode 0 (the plain version's select)
 __device__ __forceinline__ int sel_mode(int m, int n) {
@@ -159,6 +197,26 @@ __device__ __forceinline__ void publish(int* flag, int v, int lane) {
   }
 }
 
+// the next row for a one-warp CTA
+__device__ __forceinline__ int take_row_warp(int* ticket, int lane) {
+  int row = 0;
+  if (lane == 0) row = atomicAdd(ticket, 1);
+  return __shfl_sync(FULL, row, 0);
+}
+
+// publish, with the fence only when the warp stored samples since its
+// last one (dirty, uniform across the warp): the store of the flag is
+// ordered after every earlier fence all the same
+__device__ __forceinline__ void publish_if(int* flag, int v, bool& dirty,
+                                           int lane) {
+  __syncwarp();
+  if (lane == 0) {
+    if (dirty) __threadfence();
+    st_relaxed(flag, v);
+  }
+  dirty = false;
+}
+
 // 4 samples at (y, x) of a W-wide plane (x % 4 == 0) through L2, or 0
 // where the word lies outside the picture
 __device__ __forceinline__ unsigned ld_word(const uint8_t* p, int W, int H,
@@ -169,11 +227,17 @@ __device__ __forceinline__ unsigned ld_word(const uint8_t* p, int W, int H,
              : 0u;
 }
 
+// the word w, or the 4 samples s[0..3], at (y, x) of a W-wide plane
+__device__ __forceinline__ void st_word_u(uint8_t* p, int W, int y, int x,
+                                          unsigned w) {
+  *reinterpret_cast<unsigned*>(p + (size_t)y * W + x) = w;
+}
+
 __device__ __forceinline__ void st_word(uint8_t* p, int W, int y, int x,
                                         const int* s) {
-  *reinterpret_cast<unsigned*>(p + (size_t)y * W + x) =
-      (unsigned)s[0] | ((unsigned)s[1] << 8) | ((unsigned)s[2] << 16) |
-      ((unsigned)s[3] << 24);
+  st_word_u(p, W, y, x,
+            (unsigned)s[0] | ((unsigned)s[1] << 8) | ((unsigned)s[2] << 16) |
+                ((unsigned)s[3] << 24));
 }
 
 __device__ __forceinline__ void put_word(int* s, unsigned w) {
@@ -182,6 +246,7 @@ __device__ __forceinline__ void put_word(int* s, unsigned w) {
   s[2] = (w >> 16) & 255;
   s[3] = w >> 24;
 }
+
 
 // ---------------------------------------------------------------------
 // intra luma: one MB row at a time, two warps per CTA
@@ -537,79 +602,130 @@ intra_luma_kernel(const IntraLumaArgs a) {
 }
 
 // ---------------------------------------------------------------------
-// intra chroma: 128 threads = 2 planes x 64 pixels
+// intra chroma: one MB row at a time, one warp per CTA
 // ---------------------------------------------------------------------
 
-__global__ void intra_chroma_kernel(
-    uint8_t* __restrict__ cb, uint8_t* __restrict__ cr,
-    const int* __restrict__ kind, const int* __restrict__ res_c,
-    const int* __restrict__ chroma_mode, const int* __restrict__ mb_avail,
-    int mb_w, int mb_h, int d, int mby_lo) {
-  const int mby = mby_lo + blockIdx.x;
-  const int mbx = d - 2 * mby;
-  const int mb = mby * mb_w + mbx;
-  const int k = kind[mb];
-  if (k < 1 || k > 3) return;
+struct IntraChromaArgs {
+  uint8_t *cb, *cr;
+  const int *kind, *res_c, *chroma_mode, *mb_avail;
+  int* progress;  // [mb_h] rows done, then the row ticket
+  int mb_w, mb_h;
+};
 
-  const int W = mb_w * 8, H = mb_h * 8;
-  const int x0 = mbx * 8, y0 = mby * 8;
-  const int tid = threadIdx.x;
-  const int ci = tid >> 6, p = tid & 63;
-  const int r = p >> 3, c = p & 7;
-  uint8_t* plane = ci ? cr : cb;
-  __shared__ int T[2][9][9];  // row 0: corner + top; rows 1..8: left + tile
-  for (int i = p; i < 81; i += 64)
-    T[ci][i / 9][i % 9] = load_px(plane, W, H, y0 - 1 + i / 9, x0 - 1 + i % 9);
-  __syncthreads();
+// what one lane loads of a staged MB: its word of the MB's samples (as the
+// pass found them), its 4 residuals, and the MB's kind, mode and
+// availability
+struct ChromaStage {
+  unsigned px;
+  int res[4], kind, mode, avail;
+};
 
-  const int av = mb_avail[mb];
-  const int av1 = av & 1, av2 = av & 2;
-  const int mode = sel_mode(chroma_mode[mb], 4);
-  const int (*t)[9] = T[ci];
-  int v;
-  if (mode == 0) {
-    int sl0 = 0, sl4 = 0, st0 = 0, st4 = 0;
-    for (int i = 0; i < 4; ++i) {
-      sl0 += t[1 + i][0];
-      sl4 += t[5 + i][0];
-      st0 += t[0][1 + i];
-      st4 += t[0][5 + i];
-    }
-    const int lower = r >= 4 ? 1 : 0, right = c >= 4 ? 1 : 0;
-    if (!lower && !right) {
-      v = dc_pred(av1, av2, sl0, st0, 4, 3, 2, 2);
-    } else if (!lower && right) {
-      v = (av1 && av2) ? (st4 + 2) >> 2
-          : av1        ? (sl0 + 2) >> 2
-          : av2        ? (st4 + 2) >> 2
-                       : 0x80;
-    } else if (lower && !right) {
-      v = (av1 && av2) ? (sl4 + 2) >> 2
-          : av1        ? (sl4 + 2) >> 2
-          : av2        ? (st0 + 2) >> 2
-                       : 0x80;
-    } else {
-      v = dc_pred(av1, av2, sl4, st4, 4, 3, 2, 2);
-    }
-  } else if (mode == 1) {
-    v = t[1 + r][0];
-  } else if (mode == 2) {
-    v = t[0][1 + c];
-  } else {
-    const int corner = t[0][0];
-    int h = -4 * corner, vv = -4 * corner;
-    for (int i = 0; i < 8; ++i) {
-      h += t[0][1 + i] * (i - 3);
-      vv += t[1 + i][0] * (i - 3);
-    }
-    h = (17 * h + 16) >> 5;
-    vv = (17 * vv + 16) >> 5;
-    const int a = 16 * (t[8][0] + t[0][8]);
-    v = clip255((a + (c - 3) * h + (r - 3) * vv + 16) >> 5);
-  }
-  v = clip255(v + res_c[mb * 128 + ci * 64 + p]);
-  plane[(y0 + r) * W + x0 + c] = (uint8_t)v;
+__device__ __forceinline__ void intra_chroma_stage(ChromaStage& s,
+                                                   const IntraChromaArgs& a,
+                                                   int mbx, int mby,
+                                                   int lane) {
+  const int W = a.mb_w * 8, H = a.mb_h * 8, mb = mby * a.mb_w + mbx;
+  const int ci = lane >> 4, r = (lane >> 1) & 7, c0 = 4 * (lane & 1);
+  s.px = ld_word(ci ? a.cr : a.cb, W, H, mby * 8 + r, mbx * 8 + c0);
+  const int* res = a.res_c + mb * 128 + ci * 64 + r * 8 + c0;
+  for (int j = 0; j < 4; ++j) s.res[j] = __ldg(res + j);
+  s.kind = __ldg(a.kind + mb);
+  s.mode = __ldg(a.chroma_mode + mb);
+  s.avail = __ldg(a.mb_avail + mb);
 }
+
+__global__ void __launch_bounds__(32)
+intra_chroma_kernel(const IntraChromaArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int W = a.mb_w * 8, H = a.mb_h * 8;
+  // lane: plane ci, its word (row r, columns c0..c0+3) and its edge
+  // sample i of the plane's 16 (top 0..7, then left 0..7); g is the
+  // plane's first lane
+  const int ci = lane >> 4, i = lane & 15, g = lane & 16;
+  const int r = (lane >> 1) & 7, c0 = 4 * (lane & 1);
+  uint8_t* plane = ci ? a.cr : a.cb;
+
+  for (int mby; (mby = take_row_warp(a.progress + a.mb_h, lane)) < a.mb_h;) {
+    const int y0 = mby * 8;
+    ChromaStage cur, nxt;
+    intra_chroma_stage(cur, a, 0, mby, lane);
+    unsigned prev = 0;  // the previous MB's word of this lane (0 at x = 0)
+    int seen = 0;
+    bool dirty = false;
+    for (int x = 0; x < a.mb_w; ++x) {
+      const int x0 = x * 8;
+      if (x + 1 < a.mb_w) intra_chroma_stage(nxt, a, x + 1, mby, lane);
+      unsigned out = cur.px;  // inter / PCM MBs pass through
+      if (cur.kind >= 1 && cur.kind <= 3) {
+        // left[j]: column 7 of the previous MB, byte 3 of its word (row j,
+        // columns 4..7)
+        const unsigned lw = __shfl_sync(FULL, prev, g + 2 * (i & 7) + 1);
+        if (mby > 0) wait_row(a.progress + mby - 1, x + 1, seen, lane);
+        // the row above: this lane's 4 columns, and the corner (byte 3 of
+        // the word left of them); 0 outside the picture
+        const unsigned vw = ld_word(plane, W, H, y0 - 1, x0 + c0);
+        const int corner = ld_word(plane, W, H, y0 - 1, x0 - 4) >> 24;
+        const unsigned tw = __shfl_sync(FULL, vw, g + ((i >> 2) & 1));
+        const int e = i < 8 ? (tw >> (8 * (i & 3))) & 255 : lw >> 24;
+        const int av1 = cur.avail & 1, av2 = cur.avail & 2;
+        const int mode = sel_mode(cur.mode, 4);
+        int pred[4];
+        if (mode == 0) {
+          // sums of top 0..3, top 4..7, left 0..3, left 4..7
+          const int s4 = group_sum(e, 4);
+          const int st0 = __shfl_sync(FULL, s4, g),
+                    st4 = __shfl_sync(FULL, s4, g + 4),
+                    sl0 = __shfl_sync(FULL, s4, g + 8),
+                    sl4 = __shfl_sync(FULL, s4, g + 12);
+          const int lower = r >= 4 ? 1 : 0, right = c0 >= 4 ? 1 : 0;
+          int v;
+          if (!lower && !right) {
+            v = dc_pred(av1, av2, sl0, st0, 4, 3, 2, 2);
+          } else if (!lower && right) {
+            v = (av1 && av2) ? (st4 + 2) >> 2
+                : av1        ? (sl0 + 2) >> 2
+                : av2        ? (st4 + 2) >> 2
+                             : 0x80;
+          } else if (lower && !right) {
+            v = (av1 && av2) ? (sl4 + 2) >> 2
+                : av1        ? (sl4 + 2) >> 2
+                : av2        ? (st0 + 2) >> 2
+                             : 0x80;
+          } else {
+            v = dc_pred(av1, av2, sl4, st4, 4, 3, 2, 2);
+          }
+          for (int j = 0; j < 4; ++j) pred[j] = v;
+        } else if (mode == 1) {
+          const int v = __shfl_sync(FULL, e, g + 8 + r);
+          for (int j = 0; j < 4; ++j) pred[j] = v;
+        } else if (mode == 2) {
+          for (int j = 0; j < 4; ++j) pred[j] = (vw >> (8 * j)) & 255;
+        } else {
+          // sum over i of top[i] * (i - 3) and of left[i] * (i - 3)
+          const int ws = group_sum(e * ((i & 7) - 3), 8);
+          int h = __shfl_sync(FULL, ws, g) - 4 * corner;
+          int vv = __shfl_sync(FULL, ws, g + 8) - 4 * corner;
+          h = (17 * h + 16) >> 5;
+          vv = (17 * vv + 16) >> 5;
+          const int pa = 16 * (__shfl_sync(FULL, e, g + 15) +
+                               __shfl_sync(FULL, e, g + 7));
+          for (int j = 0; j < 4; ++j)
+            pred[j] =
+                clip255((pa + (c0 + j - 3) * h + (r - 3) * vv + 16) >> 5);
+        }
+        out = 0;
+        for (int j = 0; j < 4; ++j)
+          out |= (unsigned)clip255(pred[j] + cur.res[j]) << (8 * j);
+        st_word_u(plane, W, y0 + r, x0 + c0, out);
+        dirty = true;
+      }
+      prev = out;
+      publish_if(a.progress + mby, x + 1, dirty, lane);
+      cur = nxt;
+    }
+  }
+}
+
 // ---------------------------------------------------------------------
 // deblocking: per-edge parameters and the two line filters
 // ---------------------------------------------------------------------
@@ -885,75 +1001,187 @@ deblock_luma_kernel(const DeblockLumaArgs a) {
 }
 
 // ---------------------------------------------------------------------
-// deblock chroma: 16 threads = 2 planes x 8 lines
+// deblock chroma: one MB row at a time, two warps per CTA
 // ---------------------------------------------------------------------
 
-__global__ void deblock_chroma_kernel(
-    uint8_t* __restrict__ cb, uint8_t* __restrict__ cr,
-    const int* __restrict__ deb_str, const int* __restrict__ deb_str4,
-    const int* __restrict__ deb_ab, const int* __restrict__ alpha_t,
-    const int* __restrict__ beta_t, const int* __restrict__ tc0_t, int mb_w,
-    int mb_h, int d, int mby_lo) {
-  const int mby = mby_lo + blockIdx.x;
-  const int mbx = d - 2 * mby;
-  const int mb = mby * mb_w + mbx;
-  const int W = mb_w * 8, H = mb_h * 8;
-  const int x0 = mbx * 8, y0 = mby * 8;
-  const int tid = threadIdx.x;
-  const int ci = tid >> 3, k = tid & 7;
-  uint8_t* plane = ci ? cr : cb;
-  // window (r, c) <-> pixel (y0 - 4 + r, x0 - 4 + c) (the plain
-  // version's [12,12] window; only rows 2.. and columns 2.. are used)
-  __shared__ int Wc[2][12][12];
-  for (int i = k; i < 144; i += 8)
-    Wc[ci][i / 12][i % 12] =
-        load_px(plane, W, H, y0 - 4 + i / 12, x0 - 4 + i % 12);
-  __syncthreads();
+struct DeblockChromaArgs {
+  uint8_t *cb, *cr;
+  const int *deb_str, *deb_str4, *deb_ab, *alpha, *beta, *tc0;
+  int* progress;  // [mb_h] tiles stored per row, then the row ticket
+  int mb_w, mb_h;
+};
 
+// what one lane loads of a staged MB: its word of the MB's samples (as the
+// pass found them) and, per axis, what edge_params takes for its edge
+// (2 * ((lane >> 3) & 1)) and plane (lane >> 4): the strength byte, the
+// bS-4 flag and the alpha/beta index pair
+struct DebChromaStage {
+  unsigned px;
+  int str[2], str4[2], ab[2][2];
+};
+
+__device__ __forceinline__ void deblock_chroma_stage(
+    DebChromaStage& s, const DeblockChromaArgs& a, int mbx, int mby,
+    int lane) {
+  const int W = a.mb_w * 8, H = a.mb_h * 8, mb = mby * a.mb_w + mbx;
+  const int ci = lane >> 4, e = 2 * ((lane >> 3) & 1);
+  s.px = ld_word(ci ? a.cr : a.cb, W, H, mby * 8 + ((lane >> 1) & 7),
+                 mbx * 8 + 4 * (lane & 1));
+  const int abrow = (e == 0 ? 1 : 4) + ci;
   for (int axis = 0; axis < 2; ++axis) {
-    const int* sb = deb_str + mb * 8 + axis * 4;
-    const int* ab = deb_ab + mb * 24 + axis * 12;
-    const int d4 = deb_str4[mb * 2 + axis];
-    for (int e = 0; e < 4; e += 2) {
-      const int abrow = (e == 0 ? 1 : 4) + ci;
-      const EdgeParams p = edge_params(sb[e], e == 0 ? d4 : 0,
-                                       ab + 2 * abrow, k, 1, alpha_t,
-                                       beta_t, tc0_t);
-      const int cc0 = 2 + 4 * (e >> 1);
-      int* v[4];
-      for (int i = 0; i < 4; ++i)
-        v[i] = axis == 0 ? &Wc[ci][4 + k][cc0 + i] : &Wc[ci][cc0 + i][4 + k];
-      filter_line_chroma(v, p);
-      __syncthreads();
-    }
-  }
-
-  for (int i = k; i < 144; i += 8) {
-    const int r = i / 12, c = i % 12;
-    if (r < 2 || c < 2 || (r < 4 && c < 4)) continue;
-    const int py = y0 - 4 + r, px = x0 - 4 + c;
-    if (py >= 0 && px >= 0) plane[py * W + px] = (uint8_t)Wc[ci][r][c];
+    s.str[axis] = __ldg(a.deb_str + mb * 8 + axis * 4 + e);
+    s.str4[axis] = e == 0 ? __ldg(a.deb_str4 + mb * 2 + axis) : 0;
+    for (int j = 0; j < 2; ++j)
+      s.ab[axis][j] = __ldg(a.deb_ab + mb * 24 + axis * 12 + 2 * abrow + j);
   }
 }
 
-// MBs of diagonal d: mby in [lo, hi]
-__host__ inline void diag_range(int d, int mb_w, int mb_h, int* lo,
-                                int* hi) {
-  *lo = d - mb_w + 2 > 0 ? (d - mb_w + 2) / 2 : 0;
-  *hi = d / 2 < mb_h - 1 ? d / 2 : mb_h - 1;
+// the named barriers of a deblock-chroma CTA: CB_READY + slot, the helper
+// warp has staged the slot's MB; CB_DONE + slot, the compute warp is done
+// with it (slots 0..3: one id per slot and direction, as in the luma
+// kernels)
+enum { CB_READY = 1, CB_DONE = 5 };
+
+// the staged MB into a slot: its tile, the edge parameters of each lane
+// and axis, and whether any edge filters
+__device__ __forceinline__ void deb_chroma_commit(
+    const DebChromaStage& s, int (*Wp)[10][11], EdgeParams (*EP)[32],
+    int* act, const int* sA, const int* sB, const int* sT, int lane) {
+  const int ci = lane >> 4, k = lane & 7;
+  const int tr = (lane >> 1) & 7, th = lane & 1;
+  put_word(&Wp[ci][2 + tr][2 + 4 * th], s.px);
+  bool on = false;
+  for (int axis = 0; axis < 2; ++axis) {
+    const EdgeParams p = edge_params(s.str[axis], s.str4[axis], s.ab[axis],
+                                     k, 1, sA, sB, sT);
+    EP[axis][lane] = p;
+    on |= p.s > 0;
+  }
+  on = __any_sync(FULL, on);
+  if (lane == 0) *act = on;
+  __syncwarp();
+}
+
+__global__ void __launch_bounds__(64)
+deblock_chroma_kernel(const DeblockChromaArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int W = a.mb_w * 8;
+  // a window per slot (MB x in slot x & 3) and plane, (r, c) <-> pixel
+  // (y0 - 2 + r, x0 - 2 + c): rows 0..1 the top MB's last rows, columns
+  // 0..1 the left MB's last columns (the corner r, c < 2 is never read),
+  // rows 2..9 x columns 2..9 the MB's own tile; rows padded to 11
+  __shared__ int Wc[4][2][10][11];
+  __shared__ EdgeParams EP[4][2][32];  // [slot][axis][lane]
+  __shared__ int act[4];               // [slot]: some edge filters
+  __shared__ int sA[52], sB[52], sT[3 * 52];
+  __shared__ int row_s;
+  for (int i = threadIdx.x; i < 52; i += 64) {
+    sA[i] = __ldg(a.alpha + i);
+    sB[i] = __ldg(a.beta + i);
+  }
+  for (int i = threadIdx.x; i < 3 * 52; i += 64) sT[i] = __ldg(a.tc0 + i);
+  // lane: plane ci; its filter line k of edge 2 * e2 on each axis; its
+  // word of the tile (row tr, columns 4 * th..4 * th + 3)
+  const int ci = lane >> 4, e2 = (lane >> 3) & 1, k = lane & 7;
+  const int tr = (lane >> 1) & 7, th = lane & 1;
+  uint8_t* plane = ci ? a.cr : a.cb;
+
+  for (int mby; (mby = take_row(a.progress + a.mb_h, &row_s)) < a.mb_h;) {
+    const int y0 = mby * 8;
+    if (threadIdx.x >= 32) {
+      // helper warp: stages MB x + 2 while MB x + 1 is filtered; once MB x
+      // is, stores tile x - 1 (final now: MB x has filtered its columns
+      // 6..7) if either MB filtered, and MB x's top strip if it filtered
+      // (nothing above the picture is written), then publishes x tiles
+      DebChromaStage s;
+      for (int x = 0; x < min(2, a.mb_w); ++x) {
+        deblock_chroma_stage(s, a, x, mby, lane);
+        deb_chroma_commit(s, Wc[x], EP[x], &act[x], sA, sB, sT, lane);
+        bar_arrive(CB_READY + x);
+      }
+      bool dirty = false;
+      for (int x = 0; x < a.mb_w; ++x) {
+        const int sl = x & 3, x0 = x * 8;
+        if (x + 2 < a.mb_w) deblock_chroma_stage(s, a, x + 2, mby, lane);
+        bar_sync(CB_DONE + sl);
+        const bool on = act[sl], prev_on = x > 0 && act[(x - 1) & 3];
+        if (x > 0 && (on || prev_on)) {
+          st_word(plane, W, y0 + tr, x0 - 8 + 4 * th,
+                  &Wc[(x - 1) & 3][ci][2 + tr][2 + 4 * th]);
+          dirty = true;
+        }
+        if (on && mby > 0) {
+          if (lane < 8) {
+            const int p = lane >> 2, rr = (lane >> 1) & 1;
+            st_word(p ? a.cr : a.cb, W, y0 - 2 + rr, x0 + 4 * th,
+                    &Wc[sl][p][rr][2 + 4 * th]);
+          }
+          dirty = true;
+        }
+        if (x > 0) publish_if(a.progress + mby, x, dirty, lane);
+        if (x + 2 < a.mb_w) {
+          const int s2 = (x + 2) & 3;
+          deb_chroma_commit(s, Wc[s2], EP[s2], &act[s2], sA, sB, sT, lane);
+          bar_arrive(CB_READY + s2);
+        }
+      }
+      if (act[(a.mb_w - 1) & 3]) {
+        st_word(plane, W, y0 + tr, (a.mb_w - 1) * 8 + 4 * th,
+                &Wc[(a.mb_w - 1) & 3][ci][2 + tr][2 + 4 * th]);
+        dirty = true;
+      }
+      publish_if(a.progress + mby, a.mb_w, dirty, lane);
+    } else {
+      // compute warp: the left columns from the previous slot (0 left of
+      // the picture); if some edge filters, the top strip once tile x of
+      // the row above is stored, then the vertical edges and the
+      // horizontal ones (lane: line k of edge 2 * e2 of its plane, a
+      // window row, then a window column; the two edges of an axis touch
+      // disjoint samples); then tile x - 1's columns 6..7 back into its
+      // slot for the helper's store
+      int seen = 0;
+      for (int x = 0; x < a.mb_w; ++x) {
+        const int sl = x & 3, x0 = x * 8;
+        bar_sync(CB_READY + sl);
+        int(*w)[11] = Wc[sl][ci];
+        w[2 + tr][th] = x > 0 ? Wc[(x - 1) & 3][ci][2 + tr][8 + th] : 0;
+        if (act[sl]) {
+          if (mby > 0) wait_row(a.progress + mby - 1, x + 1, seen, lane);
+          if (lane < 8) {
+            const int p = lane >> 2, rr = (lane >> 1) & 1;
+            put_word(&Wc[sl][p][rr][2 + 4 * th],
+                     ld_word(p ? a.cr : a.cb, W, a.mb_h * 8, y0 - 2 + rr,
+                             x0 + 4 * th));
+          }
+          __syncwarp();
+          for (int axis = 0; axis < 2; ++axis) {
+            int* v[4];
+            for (int j = 0; j < 4; ++j)
+              v[j] = axis == 0 ? &w[2 + k][4 * e2 + j]
+                               : &w[4 * e2 + j][2 + k];
+            filter_line_chroma(v, EP[sl][axis][lane]);
+            __syncwarp();
+          }
+        }
+        if (x > 0) Wc[(x - 1) & 3][ci][2 + tr][8 + th] = w[2 + tr][th];
+        __syncwarp();
+        bar_arrive(CB_DONE + sl);
+      }
+    }
+  }
 }
 
 // CTAs of a row-schedule launch: one per MB row, at most as many as can
 // be resident (the ticket lets fewer CTAs take all the rows)
 template <typename K>
-cudaError_t row_grid(K kernel, int mb_h, int* grid) {
+cudaError_t row_grid(K kernel, int threads, int mb_h, int* grid) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 64,
-                                                        0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, 0);
   if (err == cudaSuccess && sms * per_sm < 1)
     err = cudaErrorInvalidConfiguration;
   *grid = mb_h < sms * per_sm ? mb_h : sms * per_sm;
@@ -978,28 +1206,26 @@ int h264_intra_luma(void* y, const void* kind, const void* res_y,
       (const int*)tab4, (const int*)tab8, (int*)progress, mb_w, mb_h,
       has_i8};
   int grid = 0;
-  const cudaError_t err = row_grid(intra_luma_kernel, mb_h, &grid);
+  const cudaError_t err = row_grid(intra_luma_kernel, 64, mb_h, &grid);
   if (err != cudaSuccess) return (int)err;
   intra_luma_kernel<<<grid, 64, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
+// progress: int32 [mb_h + 1], zero (the wrapper's scratch)
 int h264_intra_chroma(void* cb, void* cr, const void* kind,
                       const void* res_c, const void* chroma_mode,
-                      const void* mb_avail, int mb_w, int mb_h,
-                      void* stream) {
-  const int nd = mb_w + 2 * mb_h - 2;
-  for (int d = 0; d < nd; ++d) {
-    int lo, hi;
-    diag_range(d, mb_w, mb_h, &lo, &hi);
-    if (hi < lo) continue;
-    intra_chroma_kernel<<<hi - lo + 1, 128, 0, (cudaStream_t)stream>>>(
-        (uint8_t*)cb, (uint8_t*)cr, (const int*)kind, (const int*)res_c,
-        (const int*)chroma_mode, (const int*)mb_avail, mb_w, mb_h, d, lo);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+                      const void* mb_avail, void* progress, int mb_w,
+                      int mb_h, void* stream) {
+  const IntraChromaArgs a = {
+      (uint8_t*)cb, (uint8_t*)cr, (const int*)kind, (const int*)res_c,
+      (const int*)chroma_mode, (const int*)mb_avail, (int*)progress, mb_w,
+      mb_h};
+  int grid = 0;
+  const cudaError_t err = row_grid(intra_chroma_kernel, 32, mb_h, &grid);
+  if (err != cudaSuccess) return (int)err;
+  intra_chroma_kernel<<<grid, 32, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // progress: int32 [mb_h + 1], zero (the wrapper's scratch)
@@ -1012,29 +1238,26 @@ int h264_deblock_luma(void* y, const void* deb_str, const void* deb_str4,
       (const int*)deb_ab, (const int*)alpha, (const int*)beta,
       (const int*)tc0, (int*)progress, mb_w, mb_h};
   int grid = 0;
-  const cudaError_t err = row_grid(deblock_luma_kernel, mb_h, &grid);
+  const cudaError_t err = row_grid(deblock_luma_kernel, 64, mb_h, &grid);
   if (err != cudaSuccess) return (int)err;
   deblock_luma_kernel<<<grid, 64, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
+// progress: int32 [mb_h + 1], zero (the wrapper's scratch)
 int h264_deblock_chroma(void* cb, void* cr, const void* deb_str,
                         const void* deb_str4, const void* deb_ab,
                         const void* alpha, const void* beta, const void* tc0,
-                        int mb_w, int mb_h, void* stream) {
-  const int nd = mb_w + 2 * mb_h - 2;
-  for (int d = 0; d < nd; ++d) {
-    int lo, hi;
-    diag_range(d, mb_w, mb_h, &lo, &hi);
-    if (hi < lo) continue;
-    deblock_chroma_kernel<<<hi - lo + 1, 16, 0, (cudaStream_t)stream>>>(
-        (uint8_t*)cb, (uint8_t*)cr, (const int*)deb_str,
-        (const int*)deb_str4, (const int*)deb_ab, (const int*)alpha,
-        (const int*)beta, (const int*)tc0, mb_w, mb_h, d, lo);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+                        void* progress, int mb_w, int mb_h, void* stream) {
+  const DeblockChromaArgs a = {
+      (uint8_t*)cb, (uint8_t*)cr, (const int*)deb_str,
+      (const int*)deb_str4, (const int*)deb_ab, (const int*)alpha,
+      (const int*)beta, (const int*)tc0, (int*)progress, mb_w, mb_h};
+  int grid = 0;
+  const cudaError_t err = row_grid(deblock_chroma_kernel, 64, mb_h, &grid);
+  if (err != cudaSuccess) return (int)err;
+  deblock_chroma_kernel<<<grid, 64, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,9 +1,10 @@
 #pragma once
 // CPU emulation of the CUDA surface that the row-schedule kernels of
 // m2dec_tpu_torch/csrc/h264_wavefront.cu use, for checking their
-// arithmetic without a GPU (see run.py): one CTA of 64 threads as
-// std::threads in two warps of 32; __shared__ is static, so one CTA runs
-// at a time and a launch takes every MB row in turn by ticket.
+// arithmetic without a GPU (see run.py): one CTA of 64 or 32 threads as
+// std::threads in warps of 32, 16 named barriers; __shared__ is static,
+// so one CTA runs at a time and a launch takes every MB row in turn by
+// ticket.
 #include <atomic>
 #include <barrier>
 #include <chrono>
@@ -22,7 +23,7 @@ struct dim3e { int x, y, z; };
 extern thread_local dim3e threadIdx;
 extern dim3e blockIdx, blockDim;
 extern std::barrier<> *emu_wbar[2];
-extern std::barrier<> *emu_nbar[8];
+extern std::barrier<> *emu_nbar[16];
 extern int emu_xch[2][32];
 inline std::barrier<>& wb() { return *emu_wbar[threadIdx.x >> 5]; }
 inline void __syncwarp() { wb().arrive_and_wait(); }

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Check the row-schedule luma kernels of csrc/h264_wavefront.cu on the
+"""Check the four row-schedule kernels of csrc/h264_wavefront.cu on the
 CPU, without nvcc or a GPU.
 
 The kernel source is compiled with g++ against ``cuda_runtime.h`` here,
 which stubs the CUDA intrinsics the kernels use (shuffles, warp and
 named barriers, ``__ldcg``, the acquire/relaxed flag accesses, clock64):
-one CTA of two warps runs as 64 threads and takes every MB row in turn.
-Its output is held against the plain versions (``codecs/h264/
-wavefront.py``) on random plans, byte for byte. It checks the kernels'
-arithmetic, windows and slot hand-over between the two warps; races
-between CTAs, the L1/L2 behaviour and the compiler for sm_90a show only
-on the card.
+one CTA runs as threads (two warps, 64 threads; one warp for intra
+chroma) and takes every MB row in turn. Its
+output is held against the plain versions (``codecs/h264/
+wavefront.py``) on random plans, byte for byte, and every row's progress
+flag must end at mb_w. It checks the kernels' arithmetic, windows, the
+slot hand-over between the two warps of a CTA and the window carried
+from MB to MB; races between CTAs, the L1/L2 behaviour and the compiler
+for sm_90a show only on the card.
 
     python3 tests/cuda_emu/run.py        # from the root of a checkout
 """
@@ -21,7 +23,6 @@ import re
 import subprocess
 import sys
 
-import numpy as np
 import torch
 
 HERE = pathlib.Path(__file__).resolve().parent
@@ -36,27 +37,27 @@ from m2dec_tpu_torch.codecs.h264.state import device_tables  # noqa: E402
 SOURCE = REPO / "m2dec_tpu_torch" / "csrc" / "h264_wavefront.cu"
 BUILD = REPO / "build" / "cuda_emu"
 
-#: the host side: run a kernel on one CTA of 64 threads
+#: the host side: run a kernel on one CTA of n threads (64 or 32)
 HARNESS = r'''
 }  // namespace
 thread_local dim3e threadIdx;
 dim3e blockIdx, blockDim;
 std::barrier<> *emu_wbar[2];
-std::barrier<> *emu_nbar[8];
+std::barrier<> *emu_nbar[16];
 int emu_xch[2][32];
 #include <thread>
 #include <vector>
-template <class A, class K> static void run1(K k, const A& a) {
+template <class A, class K> static void run1(K k, const A& a, int n = 64) {
   std::barrier<> w0(32), w1(32);
   emu_wbar[0] = &w0;
   emu_wbar[1] = &w1;
   std::vector<std::barrier<>*> nb;
-  for (int i = 0; i < 8; ++i) {
-    nb.push_back(new std::barrier<>(64));
+  for (int i = 0; i < 16; ++i) {
+    nb.push_back(new std::barrier<>(n));
     emu_nbar[i] = nb.back();
   }
   std::vector<std::thread> th;
-  for (int l = 0; l < 64; ++l)
+  for (int l = 0; l < n; ++l)
     th.emplace_back([&, l] { threadIdx = {l, 0, 0}; k(a); });
   for (auto& t : th) t.join();
   for (auto* b : nb) delete b;
@@ -79,6 +80,22 @@ void emu_deblock_luma(void* y, const void* s, const void* s4,
     (const int*)ab, (const int*)al, (const int*)be, (const int*)tc,
     (int*)progress, mb_w, mb_h};
   run1(deblock_luma_kernel, a);
+}
+void emu_intra_chroma(void* cb, void* cr, const void* kind,
+    const void* res_c, const void* mode, const void* mbav, void* progress,
+    int mb_w, int mb_h) {
+  IntraChromaArgs a = {(uint8_t*)cb, (uint8_t*)cr, (const int*)kind,
+    (const int*)res_c, (const int*)mode, (const int*)mbav, (int*)progress,
+    mb_w, mb_h};
+  run1(intra_chroma_kernel, a, 32);
+}
+void emu_deblock_chroma(void* cb, void* cr, const void* s, const void* s4,
+    const void* ab, const void* al, const void* be, const void* tc,
+    void* progress, int mb_w, int mb_h) {
+  DeblockChromaArgs a = {(uint8_t*)cb, (uint8_t*)cr, (const int*)s,
+    (const int*)s4, (const int*)ab, (const int*)al, (const int*)be,
+    (const int*)tc, (int*)progress, mb_w, mb_h};
+  run1(deblock_chroma_kernel, a);
 }
 }
 '''
@@ -110,7 +127,35 @@ def build():
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.emu_intra_luma.argtypes = [vp] * 12 + [i] * 3
     lib.emu_deblock_luma.argtypes = [vp] * 8 + [i] * 2
+    lib.emu_intra_chroma.argtypes = [vp] * 7 + [i] * 2
+    lib.emu_deblock_chroma.argtypes = [vp] * 9 + [i] * 2
     return lib
+
+
+def run_kernel(lib, tabs, name, planes, P, has_i8, mb_w, mb_h):
+    """Kernel ``name`` on copies of ``planes`` in the emulation; returns
+    (the planes, the progress flags)."""
+    got = [t.clone() for t in planes]
+    prog = torch.zeros(mb_h + 1, dtype=torch.int32)
+    ptrs = [t.data_ptr() for t in got]
+    deb = [P[k] for k in ("deb_str", "deb_str4", "deb_ab")] + [
+        tabs[k] for k in ("alpha", "beta", "tc0")]
+    if name == "intra_luma":
+        meta = [P[k] for k in (
+            "kind", "res_y", "i4_modes", "i4_avail", "i8_modes",
+            "i8_avail", "i16_mode", "mb_avail")]
+        meta += [tabs["i4_tab"], tabs["i8_tab"], prog]
+        lib.emu_intra_luma(*ptrs, *(t.data_ptr() for t in meta),
+                           int(has_i8), mb_w, mb_h)
+    elif name == "intra_chroma":
+        meta = [P[k] for k in ("kind", "res_c", "chroma_mode",
+                               "mb_avail")] + [prog]
+        lib.emu_intra_chroma(*ptrs, *(t.data_ptr() for t in meta), mb_w,
+                             mb_h)
+    else:
+        fn = getattr(lib, "emu_" + name)
+        fn(*ptrs, *(t.data_ptr() for t in deb + [prog]), mb_w, mb_h)
+    return got, prog
 
 
 def main():
@@ -127,29 +172,22 @@ def main():
                     Pn["deb_str"][:] = 0
                     Pn["deb_str4"][:] = 0
                 P = torch_plan(Pn)
-                y = torch.from_numpy(rand_planes(mb_w, mb_h, seed)[0])
-                runs = [("intra_luma", h, WF.intra_luma_plain(
-                    y, P, h, mb_w, mb_h)) for h in (True, False)]
-                runs.append(("deblock_luma", None,
-                             WF.deblock_luma_plain(y, P, mb_w, mb_h)))
-                for name, has_i8, want in runs:
-                    got = y.clone()
-                    prog = torch.zeros(mb_h + 1, dtype=torch.int32)
-                    if name == "intra_luma":
-                        meta = [P[k] for k in (
-                            "kind", "res_y", "i4_modes", "i4_avail",
-                            "i8_modes", "i8_avail", "i16_mode", "mb_avail")]
-                        meta += [tabs["i4_tab"], tabs["i8_tab"], prog]
-                        lib.emu_intra_luma(got.data_ptr(), *(
-                            t.data_ptr() for t in meta), int(has_i8),
-                            mb_w, mb_h)
-                    else:
-                        meta = [P[k] for k in ("deb_str", "deb_str4",
-                                               "deb_ab")]
-                        meta += [tabs[k] for k in ("alpha", "beta", "tc0")]
-                        lib.emu_deblock_luma(got.data_ptr(), *(
-                            t.data_ptr() for t in meta + [prog]), mb_w, mb_h)
-                    err = (got.int() - want.int()).abs().max().item()
+                y, cb, cr = (torch.from_numpy(a)
+                             for a in rand_planes(mb_w, mb_h, seed))
+                runs = [("intra_luma", h, (y,), (WF.intra_luma_plain(
+                    y, P, h, mb_w, mb_h),)) for h in (True, False)]
+                runs += [
+                    ("deblock_luma", None, (y,),
+                     (WF.deblock_luma_plain(y, P, mb_w, mb_h),)),
+                    ("intra_chroma", None, (cb, cr),
+                     WF.intra_chroma_plain(cb, cr, P, mb_w, mb_h)),
+                    ("deblock_chroma", None, (cb, cr),
+                     WF.deblock_chroma_plain(cb, cr, P, mb_w, mb_h))]
+                for name, has_i8, planes, want in runs:
+                    got, prog = run_kernel(lib, tabs, name, planes, P,
+                                           has_i8, mb_w, mb_h)
+                    err = max((g.int() - w.int()).abs().max().item()
+                              for g, w in zip(got, want))
                     done = prog[:mb_h].tolist() == [mb_w] * mb_h
                     if err or not done:
                         bad += 1

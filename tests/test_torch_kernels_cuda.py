@@ -1,8 +1,8 @@
 """The CUDA kernels of m2dec_tpu_torch against their plain PyTorch
-versions, on the card: the four H.264 wavefront kernels on random plans
-(the two row-schedule luma kernels also on all-intra and zero-strength
-plans, and 20 times over), and the MPEG-2 8x8 IDCT on random blocks and
-on MPEG-2 streams; exact equality (integer decode, tolerance 0). The
+versions, on the card: the four H.264 wavefront kernels (all on the row
+schedule: one launch per pass) on random plans, all-intra and
+zero-strength plans, and 20 times over, and the MPEG-2 8x8 IDCT on
+random blocks and on MPEG-2 streams; exact equality (integer decode, tolerance 0). The
 tests marked ``cuda`` skip on a machine without a GPU. CPU tests show
 the kernel dispatch cannot fall back to the plain version."""
 
@@ -24,9 +24,14 @@ sys.path.insert(0, str(pathlib.Path(__file__).parent))
 
 #: (mb_w, mb_h): tiny, odd, CIF and 1080p geometries
 GEOMS = [(4, 2), (5, 3), (11, 9), (120, 68)]
-#: the row-schedule (luma) kernels also take one MB column, and more
-#: rows than the card has SMs (the ticket loop)
+#: and one MB column, and more rows than the card has SMs (the ticket
+#: loop of the row-schedule kernels)
 ROW_GEOMS = GEOMS + [(1, 9), (3, 150)]
+#: the kernel wrappers and their plain versions, by pass
+PASSES = {"intra_luma": (WK.intra_luma, WF.intra_luma_plain),
+          "intra_chroma": (WK.intra_chroma, WF.intra_chroma_plain),
+          "deblock_luma": (WK.deblock_luma, WF.deblock_luma_plain),
+          "deblock_chroma": (WK.deblock_chroma, WF.deblock_chroma_plain)}
 
 
 @pytest.fixture
@@ -77,12 +82,18 @@ def test_intra_luma_kernel_all_intra(cuda, has_i8):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mb_w,mb_h", GEOMS)
-def test_intra_chroma_kernel(cuda, mb_w, mb_h):
-    P, _, cb, cr = _inputs(mb_w, mb_h, 2, cuda)
+@pytest.mark.parametrize("mb_w,mb_h,kinds",
+                         [g + (None,) for g in ROW_GEOMS]
+                         + [(120, 68, (1, 2, 3))])
+def test_intra_chroma_kernel(cuda, mb_w, mb_h, kinds):
+    """Random plans, and one with every MB intra (kinds 1-3) at 1080p:
+    no MB skips its wait, the longest chain of the row schedule."""
+    P, _, cb, cr = _inputs(mb_w, mb_h, 2, cuda, kinds=kinds)
     want = WF.intra_chroma_plain(cb, cr, P, mb_w, mb_h)
+    n0 = WK.LAUNCHES["intra_chroma"]
     got = WK.intra_chroma(cb.clone(), cr.clone(), P, mb_w, mb_h)
     torch.cuda.synchronize()
+    assert WK.LAUNCHES["intra_chroma"] == n0 + 1
     _same(got[0], want[0])
     _same(got[1], want[1])
 
@@ -99,47 +110,93 @@ def test_deblock_luma_kernel(cuda, mb_w, mb_h):
     _same(got, want)
 
 
+def _pass_planes(name, y, cb, cr):
+    """The planes pass ``name`` works on."""
+    return (y,) if name.endswith("luma") else (cb, cr)
+
+
+def _pass_args(name, P, mb_w, mb_h):
+    """The arguments of pass ``name`` after its planes."""
+    return (P, True, mb_w, mb_h) if name == "intra_luma" else (P, mb_w,
+                                                               mb_h)
+
+
+def _outs(got):
+    return got if isinstance(got, tuple) else (got,)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("mb_w,mb_h", [(11, 9), (120, 68)])
-def test_deblock_luma_kernel_zero_strength(cuda, mb_w, mb_h):
-    """All edges of strength 0: every MB takes the skip path and the
-    plane comes back unchanged, as from the plain version."""
-    P, y, _, _ = _inputs(mb_w, mb_h, 7, cuda)
+@pytest.mark.parametrize("name", ["deblock_luma", "deblock_chroma"])
+def test_deblock_luma_kernel_zero_strength(cuda, mb_w, mb_h, name):
+    """All edges of strength 0 (the luma pass, and the chroma pass): every
+    MB takes the skip path and the planes come back unchanged, as from
+    the plain version."""
+    P, y, cb, cr = _inputs(mb_w, mb_h, 7, cuda)
     P["deb_str"].zero_()
     P["deb_str4"].zero_()
-    want = WF.deblock_luma_plain(y, P, mb_w, mb_h)
-    _same(want, y)
-    _same(WK.deblock_luma(y.clone(), P, mb_w, mb_h), want)
+    kern, plain = PASSES[name]
+    planes = _pass_planes(name, y, cb, cr)
+    want = _outs(plain(*planes, P, mb_w, mb_h))
+    for w, pl in zip(want, planes):
+        _same(w, pl)
+    got = _outs(kern(*(t.clone() for t in planes), P, mb_w, mb_h))
     torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _same(g, w)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["intra_luma", "deblock_luma"])
+@pytest.mark.parametrize("name", list(PASSES))
 def test_row_kernels_repeat(cuda, name):
     """The 1080p random plan through a row-schedule pass 20 times, each
     run byte-equal to the plain version and 1 launch: a race between
-    CTAs (a missed flag, a stale line of the row above) shows as a run
-    that differs."""
+    CTAs (a missed flag, a stale line of the row above, intra chroma's
+    wait on the MB above rather than the one to its right) shows as a
+    run that differs."""
     mb_w, mb_h = 120, 68
-    P, y, _, _ = _inputs(mb_w, mb_h, 8, cuda)
-    args = (P, True, mb_w, mb_h) if name == "intra_luma" else (P, mb_w,
-                                                               mb_h)
-    want = getattr(WF, name + "_plain")(y, *args)
+    P, y, cb, cr = _inputs(mb_w, mb_h, 8, cuda)
+    kern, plain = PASSES[name]
+    planes = _pass_planes(name, y, cb, cr)
+    args = _pass_args(name, P, mb_w, mb_h)
+    want = _outs(plain(*planes, *args))
     n0 = WK.LAUNCHES[name]
-    outs = [getattr(WK, name)(y.clone(), *args) for _ in range(20)]
+    outs = [_outs(kern(*(t.clone() for t in planes), *args))
+            for _ in range(20)]
     torch.cuda.synchronize()
     assert WK.LAUNCHES[name] == n0 + 20
     for got in outs:
-        _same(got, want)
+        for g, w in zip(got, want):
+            _same(g, w)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mb_w,mb_h", GEOMS)
+@pytest.mark.parametrize("name", list(PASSES))
+def test_row_kernels_refuse_misaligned_planes(cuda, name):
+    """The kernels move samples in 4-byte words: a plane that does not
+    start on a 4-byte boundary is refused before any launch."""
+    mb_w, mb_h = 4, 2
+    P, y, cb, cr = _inputs(mb_w, mb_h, 9, cuda)
+    shifted = []
+    for t in _pass_planes(name, y, cb, cr):
+        flat = torch.zeros(t.numel() + 1, dtype=torch.uint8, device=cuda)
+        flat[1:] = t.reshape(-1)
+        shifted.append(flat[1:].view(t.shape))
+    n0 = WK.LAUNCHES[name]
+    with pytest.raises(ValueError, match="4-byte boundary"):
+        PASSES[name][0](*shifted, *_pass_args(name, P, mb_w, mb_h))
+    assert WK.LAUNCHES[name] == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mb_w,mb_h", ROW_GEOMS)
 def test_deblock_chroma_kernel(cuda, mb_w, mb_h):
     P, _, cb, cr = _inputs(mb_w, mb_h, 4, cuda)
     want = WF.deblock_chroma_plain(cb, cr, P, mb_w, mb_h)
+    n0 = WK.LAUNCHES["deblock_chroma"]
     got = WK.deblock_chroma(cb.clone(), cr.clone(), P, mb_w, mb_h)
     torch.cuda.synchronize()
+    assert WK.LAUNCHES["deblock_chroma"] == n0 + 1
     _same(got[0], want[0])
     _same(got[1], want[1])
 
