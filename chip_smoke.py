@@ -7,12 +7,16 @@ Drives the port's two main paths at 1920x1088, each on the bench's
 * H.264 through TurboH264Decoder: native C++ Phase A on the host,
   batched Phase B on the card with the four CUDA wavefront kernels;
 * MPEG-2 through TurboMpeg2Decoder: native C++ Phase A, batched Phase B
-  on the card with the CUDA 8x8 IDCT kernel.
+  on the card with the CUDA 8x8 IDCT kernel;
+* H.264 on 4 and 8 streams at once through MultiStreamPhaseB (the shape
+  of bench.py's turbo_multi): native Phase A on a thread pool, then each
+  picture step of all the streams with one launch per wavefront pass.
 
 Then it holds each kernel against its plain PyTorch version on the card,
 each path against its plain path, against a reference (the numpy plan
 interpreter for H.264, the port's CPU path for MPEG-2) and the serial
-decoder, and times the kernels and the paths.
+decoder, every stream of the multi-stream runs against the single-stream
+path, and times the kernels, the paths and the stages of Phase B.
 
     python3 chip_smoke.py        # from the root of a checkout, one GPU
 
@@ -28,6 +32,7 @@ the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -38,16 +43,23 @@ REPO = pathlib.Path(__file__).resolve().parent
 W, H = 1920, 1088
 PATTERN = "IPBPBPBPBPBP"
 SEED = 42
+#: the second 1080p H.264 stream of the multi-stream phase
+SEED2 = 43
 BATCH = len(PATTERN)
+#: stream counts of the multi-stream phase (bench.py's sweep)
+MULTI_STREAMS = (4, 8)
+#: Phase A threads of the multi-stream phase (bench.py's default)
+PHASE_A_THREADS = min(4, os.cpu_count() or 1)
 CACHE = REPO / "build" / "chip_smoke"
 
 #: cached stream -> (generator module, expression) run in a child process
 STREAMS = {
-    f"h264_{W}x{H}_s{SEED}.264": (
+    **{f"h264_{W}x{H}_s{seed}.264": (
         "h264_enc",
-        f"H264BGen({W}, {H}, seed={SEED}, num_ref_frames=2, "
+        f"H264BGen({W}, {H}, seed={seed}, num_ref_frames=2, "
         f"b_direct_prob=0.3, skip_prob=0.35, intra_prob=0.08, qp=30, "
-        f"disable_deblock=False).generate({PATTERN!r})"),
+        f"disable_deblock=False).generate({PATTERN!r})") for seed in (SEED,
+                                                                   SEED2)},
     f"m2v_{W}x{H}_s{SEED}.m2v": (
         "mpeg2_enc",
         f"Mpeg2StreamGen({W}, {H}, seed={SEED}).generate({PATTERN!r})"),
@@ -63,8 +75,8 @@ STREAMS = {
     "m2v_fieldpic_80x48.m2v": (
         "mpeg2_enc", "Mpeg2FieldPicGen(80, 48, seed=5).generate('IIPPBBPP')"),
 }
-(H264_STREAM, M2V_STREAM, HIGH_STREAM, IPCM_STREAM, FIELDMC_STREAM,
- FIELDPIC_STREAM) = STREAMS
+(H264_STREAM, H264_STREAM2, M2V_STREAM, HIGH_STREAM, IPCM_STREAM,
+ FIELDMC_STREAM, FIELDPIC_STREAM) = STREAMS
 
 H264_SOURCE = "m2dec_tpu_torch/csrc/h264_wavefront.cu"
 IDCT_SOURCE = "m2dec_tpu_torch/csrc/mpeg2_idct.cu"
@@ -254,6 +266,224 @@ def tensor_bytes(ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def phase_a(pool, datas):
+    """The native Phase A of each stream in ``datas`` on the thread pool
+    (the C++ slice decode releases the GIL); returns the decoders."""
+    from m2dec_tpu_torch.codecs.h264.decoder import H264Decoder
+
+    def one(data):
+        dec = H264Decoder(native=True, plan_alloc="empty")
+        dec.set_data(data)
+        while dec.decode_picture() == 1:
+            pass
+        return dec
+
+    return list(pool.map(one, datas))
+
+
+def stage_split(ms, plans_per_stream, wavefront_fns):
+    """One run of ``ms`` on the plans with a synchronize around every
+    stage of Phase B; returns {stage: ms per picture step}. The stages:
+    host pack, the H2D copy, unpack + residual, inter_pass, assembly (the
+    rest of the per-picture core: the inter picture, the PCM select, the
+    planes' layout), each of the four passes and the pool write."""
+    import torch
+
+    from m2dec_tpu_torch.codecs.h264 import reconstruct as R
+    from m2dec_tpu_torch.codecs.h264 import wavefront_kernels as WK
+
+    secs = {}
+
+    def timed(key, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            secs[key] = secs.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapper
+
+    def wavefronts(y, cb, cr, P, has_i8, deblock, mb_w, mb_h):
+        y = timed("intra_luma", WK.intra_luma)(y, P, has_i8, mb_w, mb_h)
+        cb, cr = timed("intra_chroma", WK.intra_chroma)(cb, cr, P, mb_w,
+                                                         mb_h)
+        if deblock:
+            y = timed("deblock_luma", WK.deblock_luma)(y, P, mb_w, mb_h)
+            cb, cr = timed("deblock_chroma", WK.deblock_chroma)(
+                cb, cr, P, mb_w, mb_h)
+        return y, cb, cr
+
+    patches = [(R.MultiStreamPhaseB, "_host_batch", "host pack"),
+               (R.MultiStreamPhaseB, "_upload", "H2D copy"),
+               (R, "_unpack_batch", "unpack + residual"),
+               (R, "inter_pass", "inter_pass"), (R, "_recon_core", "core"),
+               (R.MultiStreamPhaseB, "_store", "pool write")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, key in patches:
+        setattr(obj, name, timed(key, getattr(obj, name)))
+    ms.wavefronts, fns = wavefronts, ms.wavefronts
+    try:
+        ms.reset()
+        t0 = time.perf_counter()
+        ms.run(plans_per_stream)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+        ms.wavefronts = fns
+    steps = len(plans_per_stream[0])
+    secs["assembly"] = (secs.pop("core") - secs["inter_pass"]
+                        - sum(secs.get(k, 0.0) for k in wavefront_fns))
+    secs["total"] = total
+    return {k: round(1e3 * v / steps, 3) for k, v in secs.items()}
+
+
+def multi_stream(dev, smi, procs, data, kern, geom):
+    """Phase 8: H.264 on 4 and 8 1080p streams through MultiStreamPhaseB,
+    the seed-42 and seed-43 streams in turn. Every stream's checksum is
+    held against the single-stream kernel path (for seed 42, the picture
+    stack that phase 3 verified) and each run must launch each wavefront
+    kernel once per picture step, before anything is timed. Returns
+    (launches per S, {kernel: [stacked ms at S = 4, one stream's ms]} on
+    picture step 0)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from m2dec_tpu_torch.codecs.h264 import wavefront_kernels as WK
+    from m2dec_tpu_torch.codecs.h264.reconstruct import (
+        BatchedPhaseB,
+        MultiStreamPhaseB,
+    )
+
+    sync = torch.cuda.synchronize
+    mb_w, mb_h, pool = geom
+    sources = (data, stream(H264_STREAM2, procs))
+    with ThreadPoolExecutor(PHASE_A_THREADS) as ex:
+        # the single-stream kernel path of each source
+        dec2 = phase_a(ex, sources[1:])[0]
+        want = [MultiStreamPhaseB.checksums([kern])[0],
+                MultiStreamPhaseB.checksums([BatchedPhaseB(
+                    *geom, device=dev).run_async(dec2.plans)])[0]]
+        if np.array_equal(want[0], want[1]):
+            raise RuntimeError("the two sources decode to the same pictures")
+        datas = {S: [sources[s % 2] for s in range(S)] for S in MULTI_STREAMS}
+
+        # correctness first, for every S; the inputs of the passes on
+        # picture steps 0 and 2 at S = 4
+        captured = {}
+
+        def capturing(y, cb, cr, P, has_i8, deblock, mbw, mbh):
+            k = captured.setdefault("steps", 0)
+            captured["steps"] = k + 1
+            if k in (0, 2):
+                captured[k] = (y.clone(), cb.clone(), cr.clone(),
+                               {n: v.clone() for n, v in P.items()}, has_i8)
+            return WK.run_wavefronts(y, cb, cr, P, has_i8, deblock, mbw,
+                                     mbh)
+
+        launches = {}
+        for S in MULTI_STREAMS:
+            plans = [d.plans for d in phase_a(ex, datas[S])]
+            ms = MultiStreamPhaseB(
+                S, *geom, device=dev,
+                wavefronts=capturing if S == 4 else WK.run_wavefronts)
+            WK.reset_launch_counts()
+            cks = MultiStreamPhaseB.checksums(ms.run(plans))
+            launches[S] = dict(WK.LAUNCHES)
+            bad = [s for s in range(S) if not np.array_equal(cks[s],
+                                                             want[s % 2])]
+            if bad:
+                raise RuntimeError(f"{S} streams: streams {bad} differ from "
+                                   f"the single-stream kernel path")
+            if launches[S] != {k: BATCH for k in ROW_KERNELS}:
+                raise RuntimeError(f"{S} streams: wavefront launches "
+                                   f"{launches[S]}, want {BATCH} each")
+        phase(8, f"H.264 {W}x{H} on {' and '.join(map(str, MULTI_STREAMS))} "
+                 f"streams (seeds {SEED} and {SEED2} in turn) through "
+                 f"MultiStreamPhaseB: every stream's checksum equal to the "
+                 f"single-stream kernel path (seed {SEED}: the stack phase 3 "
+                 f"verified); wavefront launches per run "
+                 + json.dumps({S: sum(v.values())
+                               for S, v in launches.items()})
+                 + f" for {BATCH} picture steps (4 per step, whatever S)")
+
+        # timing: end to end as bench.py's turbo_multi (threaded Phase A,
+        # Phase B, checksums), and Phase B alone; median of 3 warm runs
+        for S in MULTI_STREAMS:
+            ms = MultiStreamPhaseB(S, *geom, device=dev)
+            e2e, pa, pb = [], [], []
+            for _ in range(4):  # the first run warms up
+                ms.reset()
+                sync()
+                t0 = time.perf_counter()
+                plans = [d.plans for d in phase_a(ex, datas[S])]
+                t1 = time.perf_counter()
+                cks = MultiStreamPhaseB.checksums(ms.run(plans))
+                e2e.append(time.perf_counter() - t0)
+                pa.append(t1 - t0)
+                if any(not np.array_equal(cks[s], want[s % 2])
+                       for s in range(S)):
+                    raise RuntimeError(f"{S} streams: a timed run differs")
+                ms.reset()
+                sync()
+                t0 = time.perf_counter()
+                ms.run(plans)
+                sync()
+                pb.append(time.perf_counter() - t0)
+            e2e_s, pa_s, pb_s = (statistics.median(v[1:])
+                                 for v in (e2e, pa, pb))
+            pics = S * BATCH
+            phase(8, f"{S} streams on {smi}: end to end {pics / e2e_s:.2f} "
+                     f"fps per GPU ({1e3 * e2e_s / pics:.3f} ms/picture: "
+                     f"Phase A on {PHASE_A_THREADS} threads, Phase B, "
+                     f"checksums); Phase A {1e3 * pa_s / pics:.3f} "
+                     f"ms/picture; Phase B {1e3 * pb_s / pics:.3f} "
+                     f"ms/picture, {1e3 * pb_s / BATCH:.2f} ms per picture "
+                     f"step of {S} streams; median of 3 warm runs each")
+
+        # each pass stacked at S = 4 against the same pass on one stream
+        # (stream 0), CUDA events, median of 20, picture steps 0 and 2
+        S = 4
+        n = mb_w * mb_h
+        stacked_ms = {}
+        for k in (0, 2):
+            y, cb, cr, P, has_i8 = captured[k]
+            iy = WK.intra_luma(y.clone(), P, has_i8, mb_w, mb_h)
+            icb, icr = WK.intra_chroma(cb.clone(), cr.clone(), P, mb_w,
+                                       mb_h)
+            P1 = {name: v[:n] for name, v in P.items()}
+            passes = {"intra_luma": (WK.intra_luma, (y,), (has_i8,)),
+                      "intra_chroma": (WK.intra_chroma, (cb, cr), ()),
+                      "deblock_luma": (WK.deblock_luma, (iy,), ()),
+                      "deblock_chroma": (WK.deblock_chroma, (icb, icr),
+                                         ())}
+            for name, (fn, planes, extra) in passes.items():
+                stacked_ms.setdefault(name, []).extend([
+                    event_ms(fn, lambda: (*(t.clone() for t in planes), P,
+                                          *extra, mb_w, mb_h), 20),
+                    event_ms(fn, lambda: (*(t[0].clone() for t in planes),
+                                          P1, *extra, mb_w, mb_h), 20)])
+        phase(8, f"wavefront passes at {S} streams on {smi} [stacked "
+                 f"picture step 0, one stream's picture 0, stacked step 2, "
+                 f"one stream's picture 2] ms (CUDA events, median of 20): "
+                 + json.dumps({k: [round(v, 4) for v in vs]
+                               for k, vs in stacked_ms.items()}))
+
+        # the Phase B split, one run each with a synchronize per stage
+        for S in (1, 4):
+            plans = [d.plans for d in phase_a(ex, datas[4][:S])]
+            split = stage_split(MultiStreamPhaseB(S, *geom, device=dev),
+                                plans, ROW_KERNELS)
+            phase(8, f"Phase B split at {S} stream{'s' * (S > 1)} on {smi}, "
+                     f"ms per picture step, a synchronize around each stage: "
+                     + json.dumps(split))
+    return launches, stacked_ms
+
+
 def main():
     import torch
 
@@ -369,19 +599,22 @@ def run(dev, procs, t_start):
     captured = {}
 
     def capturing(y, cb, cr, P, has_i8, deblock, mbw, mbh):
+        # the passes get [1, H, W] stacks: BatchedPhaseB's one stream
         k = len(captured.setdefault("order", []))
         captured["order"].append(k)
         if k in (0, 2):
-            captured[k] = (y.clone(), cb.clone(), cr.clone(),
+            captured[k] = (y[0].clone(), cb[0].clone(), cr[0].clone(),
                            {n: v.clone() for n, v in P.items()}, has_i8)
         return WK.run_wavefronts(y, cb, cr, P, has_i8, deblock, mbw, mbh)
+
+    def plain_wavefronts(y, cb, cr, P, *args):
+        return WK.per_stream(WF.run_wavefronts_plain, (y, cb, cr), P, *args)
 
     kern = BatchedPhaseB(*geom, device=dev,
                          wavefronts=capturing).run_async(plans)
     t0 = time.perf_counter()
     plain = BatchedPhaseB(*geom, device=dev,
-                          wavefronts=WF.run_wavefronts_plain).run_async(
-                              plans)
+                          wavefronts=plain_wavefronts).run_async(plans)
     sync()
     plain_s = time.perf_counter() - t0
     ck_k = frame_checksums(*kern).cpu()
@@ -731,6 +964,10 @@ def run(dev, procs, t_start):
                       bounds[k][1], None if bounds[k][2] is None
                       else round(bounds[k][2], 4)] for k in REPLACES}))
 
+    # -- phase 8: H.264 on 4 and 8 streams (MultiStreamPhaseB) -----------
+    multi_launches, stacked_ms = multi_stream(dev, smi, procs, data, kern,
+                                              geom)
+
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "m2dec_tpu"))
     if bad:
@@ -742,7 +979,10 @@ def run(dev, procs, t_start):
          "max_abs_err": errs[k], "ms": times[k][0],
          "plain_ms": times[k][1], "bound_ms": bounds[k][0],
          "bound_by": bounds[k][1], "library_ms": None,
-         "dependency_ms": bounds[k][2], "inter_ms": inter_ms[k]}
+         "dependency_ms": bounds[k][2], "inter_ms": inter_ms[k],
+         "multistream_launches": {S: v.get(k, 0)
+                                  for S, v in multi_launches.items()},
+         "stacked4_ms": stacked_ms.get(k)}
         for k in REPLACES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

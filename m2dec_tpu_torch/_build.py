@@ -33,10 +33,10 @@ _INT = ctypes.c_int
 #: stream are c_void_p, so ctypes never truncates them to 32 bits.
 LIBRARIES = {
     "h264_wavefront": {
-        "h264_intra_luma": [_VP] * 12 + [_INT] * 3 + [_VP],
-        "h264_intra_chroma": [_VP] * 7 + [_INT] * 2 + [_VP],
-        "h264_deblock_luma": [_VP] * 8 + [_INT] * 2 + [_VP],
-        "h264_deblock_chroma": [_VP] * 9 + [_INT] * 2 + [_VP],
+        "h264_intra_luma": [_VP] * 12 + [_INT] * 4 + [_VP],
+        "h264_intra_chroma": [_VP] * 7 + [_INT] * 3 + [_VP],
+        "h264_deblock_luma": [_VP] * 8 + [_INT] * 3 + [_VP],
+        "h264_deblock_chroma": [_VP] * 9 + [_INT] * 3 + [_VP],
     },
     "mpeg2_idct": {
         "mpeg2_idct8x8": [_VP, _VP, ctypes.c_longlong, _VP],

@@ -2,14 +2,17 @@
 
 The counterpart of ``m2dec_tpu/codecs/h264/reconstruct.py``: the same
 integer arithmetic, written as plain torch ops on an explicit device.
-Per picture (``_recon_core``): residual inverse transforms, quarter-pel
-motion compensation, assembly of the inter picture, IPCM substitution,
-then the intra and deblocking wavefronts (``wavefront_kernels``: CUDA
-kernels on a GPU, the plain PyTorch scans on the CPU).
+Per picture step of S streams (``_recon_core``): quarter-pel motion
+compensation, assembly of the inter pictures, IPCM substitution, then
+the intra and deblocking wavefronts (``wavefront_kernels``: CUDA kernels
+on a GPU, one launch per pass for all S streams; the plain PyTorch scans
+on the CPU). The residual inverse transforms read no reference frame and
+run before, once per batch (``_residuals``).
 
-``BatchedPhaseB`` keeps the frame pool resident on the device and runs
-a batch of pictures from one host->device copy of the packed wire blob.
-Everything is int32 on the device except the uint8 planes and pool.
+``MultiStreamPhaseB`` keeps S streams' frame pools resident on the
+device and runs a batch of pictures of all S from one host->device copy
+of the packed wire blobs; ``BatchedPhaseB`` is its one-stream case.
+Everything is int32 on the device except the uint8 planes and pools.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ...device import resolve_device
+from ...runtime.golden import stack_checksum
 from . import plan_host as host
 from .decoder import Frame
 from .native_pack import pack_batches
@@ -236,27 +240,40 @@ def _combine_wp(p0, p1, both, w0, w1, o, s):
 
 def inter_pass(plan_mv, plan_slot, plan_wp, refs_y, refs_cb, refs_cr,
                mb_w, mb_h, hp_tab, used=None, bi_idx=None):
-    """Predict every 4x4 block of the picture (the JAX package's dense
-    path): pred_y [n,16,16], pred_cb/cr [n,8,8] int32, garbage for
-    intra MBs (selected out later).
+    """Predict every 4x4 block of one picture of each of S streams (the
+    JAX package's dense path): pred_y [S*n,16,16], pred_cb/cr [S*n,8,8]
+    int32, garbage for intra MBs (selected out later).
 
-    used: optional [K] pool slots this picture references (plan slots
-    pre-remapped to 0..K-1). bi_idx: optional [Bb] bi-predicted cell
-    indices padded with B; the second prediction is fetched only for
-    those cells."""
+    Plan tensors are [S*n, ...] in stream-major order; refs [S,R,H,W]
+    are each stream's reference planes. used: optional [S,K] pool slots
+    each stream's picture references (plan slots pre-remapped to
+    0..K-1). bi_idx: optional [S,Bb] bi-predicted cell indices of each
+    stream's picture, padded with n*16; the second prediction is fetched
+    only for those cells. A stream reads only its own K (or R) planes,
+    so every stream's bytes are those of a single-stream call."""
+    S, R, H, W = refs_y.shape
     n = mb_w * mb_h
-    B = n * 16
+    B = S * n * 16
     dev = plan_mv.device
-    H, W = refs_y.shape[1], refs_y.shape[2]
+    sidx = torch.arange(S, device=dev)
+    refs = [r.reshape((S * R,) + r.shape[2:])
+            for r in (refs_y, refs_cb, refs_cr)]
+    K = R
     if used is not None:
-        u = used.long()
-        refs_y, refs_cb, refs_cr = refs_y[u], refs_cb[u], refs_cr[u]
-    refs_y_p = _pad_refs_edge(refs_y)
-    refs_c_p = _interleave_chroma(_pad_refs_edge(refs_cb),
-                                  _pad_refs_edge(refs_cr))
+        K = used.shape[1]
+        u = (used.long() + sidx[:, None] * R).reshape(-1)
+        refs = [r[u] for r in refs]
+    refs_y_p = _pad_refs_edge(refs[0])
+    refs_c_p = _interleave_chroma(_pad_refs_edge(refs[1]),
+                                  _pad_refs_edge(refs[2]))
     planes16 = _qpel_planes(_halfpel_planes(refs_y_p), hp_tab)
+    # each cell's first plane among the S*K: the stream's slots are
+    # clamped to its own K, as a single-stream call clamps them
+    cell = torch.arange(B, device=dev)
+    kbase = (cell // (n * 16)).to(I32) * K
 
-    def pred_one(sl, mvv, bxv, byv):
+    def pred_one(sl, base, mvv, bxv, byv):
+        sl = sl.clamp(0, K - 1) + base
         mvx, mvy = mvv[:, 0], mvv[:, 1]
         py = _luma_mc_qp(planes16, sl, bxv + (mvx >> 2), byv + (mvy >> 2),
                          mvx & 3, mvy & 3, H, W)
@@ -273,15 +290,15 @@ def inter_pass(plan_mv, plan_slot, plan_wp, refs_y, refs_cb, refs_cr,
         s = wpa[:, pi, 3][:, None, None]
         return _combine_wp(pa, pb, mask3, w0, w1, o, s)
 
-    mb = torch.arange(n, dtype=I32, device=dev)
+    mb = torch.arange(S * n, dtype=I32, device=dev) % n
     x0 = (mb % mb_w) * 16
     y0 = (mb // mb_w) * 16
     blk = torch.arange(16, dtype=I32, device=dev)
     bx = (x0[:, None] + (blk[None, :] & 3) * 4).reshape(B)
     by = (y0[:, None] + (blk[None, :] >> 2) * 4).reshape(B)
     quad = ((blk >> 3) * 2 + ((blk >> 1) & 1)).long()
-    slot = plan_slot.reshape(n, 4, 2)[:, quad].reshape(B, 2)
-    wp = plan_wp.reshape(n, 4, 3, 4)[:, quad].reshape(B, 3, 4)
+    slot = plan_slot.reshape(S * n, 4, 2)[:, quad].reshape(B, 2)
+    wp = plan_wp.reshape(S * n, 4, 3, 4)[:, quad].reshape(B, 3, 4)
     mv = plan_mv.reshape(B, 2, 2)
 
     s0, s1 = slot[:, 0], slot[:, 1]
@@ -289,37 +306,40 @@ def inter_pass(plan_mv, plan_slot, plan_wp, refs_y, refs_cb, refs_cr,
     # single-list predictions route through p0 (recorder convention)
     p0_slot = torch.where(s0 >= 0, s0, s1)
     p0_mv = torch.where((s0 >= 0)[:, None], mv[:, 0], mv[:, 1])
-    p0y, p0cb, p0cr = pred_one(p0_slot, p0_mv, bx, by)
+    p0y, p0cb, p0cr = pred_one(p0_slot, kbase, p0_mv, bx, by)
 
     if bi_idx is None:
         p1y, p1cb, p1cr = pred_one(
-            torch.where(both, s1, p0_slot),
+            torch.where(both, s1, p0_slot), kbase,
             torch.where(both[:, None], mv[:, 1], p0_mv), bx, by)
         both3 = both[:, None, None]
         out_y = comb(wp, 0, p0y, p1y, both3)     # [B,4,4]
         out_cb = comb(wp, 1, p0cb, p1cb, both3)  # [B,2,2]
         out_cr = comb(wp, 2, p0cr, p1cr, both3)
     else:
-        # uni combine everywhere; the listed bi cells overwrite (pad
-        # entries >= B are dropped explicitly: torch does not clamp)
-        bidx = bi_idx.long()
-        bidx = bidx[bidx < B]
-        p1y, p1cb, p1cr = pred_one(s1[bidx], mv[bidx, 1], bx[bidx],
-                                   by[bidx])
-        wpc = wp[bidx]
-        out_y = comb(wp, 0, p0y, p0y, False)
-        out_cb = comb(wp, 1, p0cb, p0cb, False)
-        out_cr = comb(wp, 2, p0cr, p0cr, False)
-        out_y[bidx] = comb(wpc, 0, p0y[bidx], p1y, True)
-        out_cb[bidx] = comb(wpc, 1, p0cb[bidx], p1cb, True)
-        out_cr[bidx] = comb(wpc, 2, p0cr[bidx], p1cr, True)
+        # uni combine everywhere; the listed bi cells overwrite. Pad
+        # entries (torch does not clamp) land on row B, one past the
+        # cells, which is cut off: no host sync to drop them
+        bcell = bi_idx.long()
+        bcell = torch.where(bcell < n * 16, bcell + sidx[:, None] * n * 16,
+                            B).reshape(-1)
+        g = bcell.clamp(max=B - 1)
+        p1y, p1cb, p1cr = pred_one(s1[g], kbase[g], mv[g, 1], bx[g], by[g])
+        wpc = wp[g]
+        outs = []
+        for pi, p0, p1 in ((0, p0y, p1y), (1, p0cb, p1cb), (2, p0cr, p1cr)):
+            out = comb(wp, pi, p0, p0, False)
+            out = torch.cat([out, out[:1]])
+            out[bcell] = comb(wpc, pi, p0[g], p1, True)
+            outs.append(out[:B])
+        out_y, out_cb, out_cr = outs
 
-    pred_y = (out_y.reshape(n, 4, 4, 4, 4).permute(0, 1, 3, 2, 4)
-              .reshape(n, 16, 16))
-    pred_cb = (out_cb.reshape(n, 4, 4, 2, 2).permute(0, 1, 3, 2, 4)
-               .reshape(n, 8, 8))
-    pred_cr = (out_cr.reshape(n, 4, 4, 2, 2).permute(0, 1, 3, 2, 4)
-               .reshape(n, 8, 8))
+    pred_y = (out_y.reshape(-1, 4, 4, 4, 4).permute(0, 1, 3, 2, 4)
+              .reshape(-1, 16, 16))
+    pred_cb = (out_cb.reshape(-1, 4, 4, 2, 2).permute(0, 1, 3, 2, 4)
+               .reshape(-1, 8, 8))
+    pred_cr = (out_cr.reshape(-1, 4, 4, 2, 2).permute(0, 1, 3, 2, 4)
+               .reshape(-1, 8, 8))
     return pred_y, pred_cb, pred_cr
 
 
@@ -584,28 +604,46 @@ def _edge_params(stbyte, str4, ab, nlines, shift, alpha_t, beta_t, tc0_t):
 
 
 def _assemble(mbs, blk, mb_w, mb_h):
-    return (mbs.reshape(mb_h, mb_w, blk, blk).permute(0, 2, 1, 3)
-            .reshape(mb_h * blk, mb_w * blk))
+    """Per-MB tiles [S*n, blk, blk] (stream-major) -> S raster planes."""
+    return (mbs.reshape(-1, mb_h, mb_w, blk, blk).permute(0, 1, 3, 2, 4)
+            .reshape(-1, mb_h * blk, mb_w * blk))
 
 
 def _pcm_planes(rows, mb_w, mb_h):
-    """One picture's [nmb, 384] PCM rows -> (y, cb, cr) raster planes."""
+    """PCM rows [..., n, 384] of any number of pictures -> their (y, cb,
+    cr) raster planes, [P, H, W] for the P pictures."""
+    rows = rows.reshape(-1, 384)
     y = _assemble(rows[:, :256], 16, mb_w, mb_h)
     cb = _assemble(rows[:, 256:320], 8, mb_w, mb_h)
     cr = _assemble(rows[:, 320:384], 8, mb_w, mb_h)
     return y, cb, cr
 
 
+def _residuals(P, has_i8):
+    """(res_y [..., 16, 16], res_c [..., 2, 8, 8]) of plan tensors P with
+    any leading dims: the residual iDCT, which reads no reference frame,
+    so it runs once for a whole batch of pictures and streams."""
+    cl, cc = P["coef_luma"], P["coef_chroma"]
+    res_y = residual_mb(cl.reshape(-1, 256), P["t8x8"].reshape(-1),
+                        has_i8=has_i8)
+    res_c = residual_chroma(cc.reshape(-1, 2, 4, 16))
+    return (res_y.reshape(cl.shape[:-1] + (16, 16)),
+            res_c.reshape(cc.shape[:-3] + (2, 8, 8)))
+
+
 def _recon_core(P, refs_y, refs_cb, refs_cr, pcm, *, mb_w, mb_h, has_i8,
                 deblock, wavefronts=run_wavefronts):
-    """One picture's Phase B; P = dict of int32 plan tensors, pcm = None
-    or the picture's (y, cb, cr) PCM planes. Returns uint8 planes.
+    """One picture of each of S streams. P = dict of int32 plan tensors
+    [S*n, ...] in stream-major order, with the residuals res_y and res_c
+    (``_residuals``) and optionally the dense-MC aux mc_used [S,K] /
+    mc_bi [S,Bb]; refs [S,R,H,W] each stream's pool; pcm = None or the
+    pictures' PCM planes (y, cb, cr) [S,H,W]. Returns uint8 planes
+    [S,H,W].
 
     wavefronts: the intra+deblock pass, ``run_wavefronts`` by default
-    (kernels on CUDA, plain scans on CPU)."""
+    (kernels on CUDA, plain scans on CPU), called on the [S,H,W] planes."""
     kind = P["kind"]
-    res_y = residual_mb(P["coef_luma"], P["t8x8"], has_i8=has_i8)
-    res_c = residual_chroma(P["coef_chroma"])
+    res_y, res_c = P["res_y"], P["res_c"]
     pred_y, pred_cb, pred_cr = inter_pass(
         P["mv"], P["slot"], P["wp"], refs_y, refs_cb, refs_cr, mb_w, mb_h,
         host._HP_TAB, used=P.get("mc_used"), bi_idx=P.get("mc_bi"))
@@ -621,15 +659,12 @@ def _recon_core(P, refs_y, refs_cb, refs_cr, pcm, *, mb_w, mb_h, has_i8,
     cr_plane = _assemble(inter_cr, 8, mb_w, mb_h)
     if pcm is not None:
         pcm_y, pcm_cb, pcm_cr = pcm
-        kind_mb = kind.reshape(mb_h, mb_w)
-        kpix = kind_mb.repeat_interleave(16, 0).repeat_interleave(16, 1)
-        kpixc = kind_mb.repeat_interleave(8, 0).repeat_interleave(8, 1)
+        kind_mb = kind.reshape(-1, mb_h, mb_w)
+        kpix = kind_mb.repeat_interleave(16, 1).repeat_interleave(16, 2)
+        kpixc = kind_mb.repeat_interleave(8, 1).repeat_interleave(8, 2)
         y_plane = torch.where(kpix == 4, pcm_y.to(I32), y_plane)
         cb_plane = torch.where(kpixc == 4, pcm_cb.to(I32), cb_plane)
         cr_plane = torch.where(kpixc == 4, pcm_cr.to(I32), cr_plane)
-    P = dict(P)
-    P["res_y"] = res_y
-    P["res_c"] = res_c
     u8 = torch.uint8
     return wavefronts(y_plane.to(u8).contiguous(),
                       cb_plane.to(u8).contiguous(),
@@ -665,17 +700,19 @@ def reconstruct_plan_torch(plan, frames, device=None):
     P["slot"] = torch.from_numpy(slot_r).to(dev)
     pcm = None
     if plan.pcm:
-        rows = host._pcm_rows([plan], plan.n)[0]
+        rows = host._pcm_rows([plan], plan.n)
         pcm = _pcm_planes(torch.from_numpy(rows).to(dev), plan.mb_w,
                           plan.mb_h)
     has_i8, deblock = _plan_flags(plan.kind, plan.t8x8, plan.deb_str,
                                   plan.deb_str4)
-    y, cb, cr = _recon_core(P, ry, rcb, rcr, pcm, mb_w=plan.mb_w,
-                            mb_h=plan.mb_h, has_i8=has_i8, deblock=deblock)
+    P["res_y"], P["res_c"] = _residuals(P, has_i8)
+    y, cb, cr = _recon_core(P, ry[None], rcb[None], rcr[None], pcm,
+                            mb_w=plan.mb_w, mb_h=plan.mb_h, has_i8=has_i8,
+                            deblock=deblock)
     f = frames[plan.cur_idx]
-    f.y[:] = y.cpu().numpy()
-    f.cb[:] = cb.cpu().numpy()
-    f.cr[:] = cr.cpu().numpy()
+    f.y[:] = y[0].cpu().numpy()
+    f.cb[:] = cb[0].cpu().numpy()
+    f.cr[:] = cr[0].cpu().numpy()
 
 
 # =====================================================================
@@ -691,12 +728,15 @@ _TORCH_DT = {"uint8": torch.uint8, "int8": torch.int8,
 
 
 def _device_views(buf, layout):
-    """Typed per-field views of a device byte buffer (the JAX package's
-    _wire_views layout; uint16 fields are viewed as int16 and masked by
-    _unpack_wire). Returns {key: tensor | {sub: tensor}}."""
+    """Typed per-field views [S, ...] of a device byte buffer [S, total]
+    that holds S streams' rows of one layout (the JAX package's
+    _wire_views layout; uint16 fields are viewed as int16 and masked).
+    Returns {key: tensor | {sub: tensor}}."""
+    S = buf.shape[0]
     out = {}
     for path, dtname, shape, off, nb in layout:
-        arr = buf[off : off + nb].view(_TORCH_DT[dtname]).reshape(shape)
+        arr = (buf[:, off : off + nb].view(_TORCH_DT[dtname])
+               .reshape((S,) + tuple(shape)))
         if dtname == "uint16":
             arr = (arr.to(I32) & 0xFFFF)
         if len(path) == 1:
@@ -707,14 +747,19 @@ def _device_views(buf, layout):
 
 
 def _unpack_wire(fields, pals):
-    """One picture's typed wire fields -> dense int32 plan tensors:
-    palette rows expanded, sparse coefficient bitmaps scattered."""
+    """Typed wire fields with leading dims (B, S) -> dense int32 plan
+    tensors [B, S, n, ...]: palette rows expanded (pals [S, rows, w],
+    each stream's own), sparse coefficient bitmaps scattered."""
     out = {}
     for k, v in fields.items():
         if isinstance(v, dict) and "idx" in v:
             pal = pals[k].to(I32)
+            S, rows = pal.shape[:2]
             idx = v["idx"].long()
-            out[k] = pal[idx].reshape(idx.shape + _PAL_TAIL[k])
+            soff = torch.arange(S, device=idx.device).reshape(
+                (1, S) + (1,) * (idx.dim() - 2)) * rows
+            out[k] = pal.reshape(S * rows, -1)[idx + soff].reshape(
+                idx.shape + _PAL_TAIL[k])
             continue
         if isinstance(v, dict):
             bits8 = v["bits"].to(I32)
@@ -734,108 +779,194 @@ def _unpack_wire(fields, pals):
     return out
 
 
+def _unpack_batch(dbuf, layout, has_i8, mb_w, mb_h, pool_size):
+    """The stages of a batch that read no reference frame, once for all
+    its pictures and streams: the device buffer [S, total] (see
+    ``_stack_fields``) -> (P, pcm, cur). P: the plan tensors of picture
+    step b at P[k][b], [S*n, ...] stream-major, with the residuals and
+    the dense-MC aux mc_used [S,K] / mc_bi [S,Bb]; pcm: None or the PCM
+    planes (y, cb, cr) [B,S,H,W]; cur: [B,S] each picture's slot in the
+    flat [S*pool_size] pool."""
+    S = dbuf.shape[0]
+
+    def picture_major(v):
+        return ({s: a.transpose(0, 1) for s, a in v.items()}
+                if isinstance(v, dict) else v.transpose(0, 1))
+
+    views = _device_views(dbuf, layout)
+    pals = {k[4:]: views.pop(k) for k in list(views) if k.startswith("pal_")}
+    pcm_rows = views.pop("pcm", None)
+    cur = views.pop("cur").transpose(0, 1).long()
+    cur = cur + torch.arange(S, device=cur.device) * pool_size
+    aux = {k: views.pop(k).transpose(0, 1) for k in ("mc_used", "mc_bi")}
+    dense = _unpack_wire({k: picture_major(v) for k, v in views.items()},
+                         pals)
+    dense["res_y"], dense["res_c"] = _residuals(dense, has_i8)
+    del dense["coef_luma"], dense["coef_chroma"]
+    B = cur.shape[0]
+    P = {k: v.reshape((B, -1) + v.shape[3:]) for k, v in dense.items()}
+    P.update(aux)
+    pcm = None
+    if pcm_rows is not None:
+        pcm = tuple(p.reshape((B, S) + p.shape[1:]) for p in _pcm_planes(
+            pcm_rows.transpose(0, 1), mb_w, mb_h))
+    return P, pcm, cur
+
+
 # =====================================================================
-# batched Phase B with a device-resident frame pool
+# multi-stream Phase B with device-resident frame pools
 # =====================================================================
 
 
-def _append_fields(blob, layout, extras):
-    """Append host arrays to a wire blob (8-byte aligned) so the whole
-    batch rides ONE host->device copy. Returns (buffer, layout)."""
-    parts = [blob]
-    total = blob.nbytes
+def _stack_fields(blobs, layout, extras, pin):
+    """S streams' wire blobs (one layout) and their extra host arrays
+    (the same names, shapes and dtypes in every stream) in ONE host
+    buffer [S, total]: row s is stream s's blob, then its extras, each
+    8-byte aligned, so the whole batch rides one host->device copy. pin:
+    allocate it pinned. Returns (buffer, layout of a row)."""
     lay = list(layout)
-    for name, a in extras.items():
-        a = np.ascontiguousarray(a)
-        pad = (-total) & 7
-        if pad:
-            parts.append(np.zeros(pad, np.uint8))
-            total += pad
+    total = blobs[0].nbytes
+    for name, a in extras[0].items():
+        total = (total + 7) & ~7
         lay.append(((name,), a.dtype.name, a.shape, total, a.nbytes))
-        parts.append(a.view(np.uint8).reshape(-1))
         total += a.nbytes
-    return np.concatenate(parts), tuple(lay)
+    total = (total + 7) & ~7
+    buf = torch.empty((len(blobs), total), dtype=torch.uint8,
+                      pin_memory=pin)
+    rows = buf.numpy()
+    for s, (blob, ex) in enumerate(zip(blobs, extras)):
+        rows[s, : blob.nbytes] = blob
+        for (_, _, _, off, nb), a in zip(lay[len(layout):], ex.values()):
+            rows[s, off : off + nb] = np.ascontiguousarray(a).view(
+                np.uint8).reshape(-1)
+    return buf, tuple(lay)
 
 
-class BatchedPhaseB:
-    """Device-resident frame pool + batched multi-picture Phase B.
+class MultiStreamPhaseB:
+    """S independent streams decoded together on one device, the stacked
+    counterpart of the JAX package's ``MultiStreamPhaseB``: one
+    [S, pool_size, H, W] frame pool per plane, one ``_DevSlotMap`` per
+    stream, and each picture step of all S streams as one set of torch
+    ops and one launch per wavefront pass.
+
+    A batch (``run``) takes S plan lists of equal length, of the native
+    Phase A (``H264Decoder(native=True)``): the host packs all S into
+    one buffer, copied to the device once (pinned on CUDA); wire unpack
+    and the residual iDCT run once for the batch; then per picture step
+    MC, assembly, the PCM select, the four passes and the pool write.
+    ``wavefronts`` selects the intra+deblock pass (``run_wavefronts``:
+    the kernels on CUDA). device=None is the CUDA device (raises without
+    one)."""
+
+    def __init__(self, n_streams, mb_w, mb_h, pool_size, device=None,
+                 wavefronts=run_wavefronts):
+        self.device = resolve_device(device)
+        self.n = n_streams
+        self.mb_w, self.mb_h = mb_w, mb_h
+        self.pool_size = pool_size
+        self.wavefronts = wavefronts
+        H, W = mb_h * 16, mb_w * 16
+        self.pool = tuple(
+            torch.zeros((n_streams, pool_size, h, w), dtype=torch.uint8,
+                        device=self.device)
+            for h, w in ((H, W), (H >> 1, W >> 1), (H >> 1, W >> 1)))
+        self.smaps = [host._DevSlotMap(pool_size) for _ in range(n_streams)]
+
+    def reset(self):
+        """Start every stream's pool over (zeros, no slot mapped)."""
+        for p in self.pool:
+            p.zero_()
+        for m in self.smaps:
+            m.reset()
+
+    def _host_batch(self, plans_per_stream):
+        """Pack a batch on the host (``_stack_fields``): per stream its
+        wire blob with remapped slots, dense-MC aux, device slots,
+        palettes and (if any stream has one) PCM rows. Returns (buffer,
+        layout, has_i8, deblock), the flags ORed over all streams."""
+        if (len(plans_per_stream) != self.n
+                or len({len(p) for p in plans_per_stream}) != 1):
+            raise ValueError(f"want {self.n} plan lists of one length, got "
+                             f"{[len(p) for p in plans_per_stream]}")
+        res = pack_batches(plans_per_stream)
+        if res is None:
+            raise ValueError(f"{type(self).__name__} takes the plans of "
+                             "the native Phase A (H264Decoder(native=True)), "
+                             "which the native wire packer serves")
+        blobs, layout, pals_list, has_i8, deblock = res
+        fields = [host._wire_views(b, layout) for b in blobs]
+        cur = np.zeros((self.n, len(plans_per_stream[0])), np.int32)
+        for s, plans in enumerate(plans_per_stream):
+            host._remap_batch(fields[s]["slot"], cur[s], plans,
+                              self.smaps[s])
+        auxs = host._derive_mc_aux([f["slot"] for f in fields],
+                                   self.pool_size, self.mb_w, self.mb_h)
+        pcm = any(p.pcm for plans in plans_per_stream for p in plans)
+        extras = []
+        for s, plans in enumerate(plans_per_stream):
+            ex = {"mc_used": auxs[s][0], "mc_bi": auxs[s][1], "cur": cur[s]}
+            ex.update({"pal_" + k: v for k, v in pals_list[s].items()})
+            if pcm:
+                ex["pcm"] = host._pcm_rows(plans, self.mb_w * self.mb_h)
+            extras.append(ex)
+        buf, layout = _stack_fields(blobs, layout, extras,
+                                    self.device.type == "cuda")
+        return buf, layout, has_i8, deblock
+
+    def _upload(self, buf):
+        """The batch's one host->device copy."""
+        return buf.to(self.device, non_blocking=True)
+
+    def _store(self, b, cur, planes, outs):
+        """Picture step b's planes [S,H,W] into each stream's pool slot
+        (cur [S], flat pool indices) and into outs [B,S,H,W]."""
+        for pool, out, v in zip(self.pool, outs, planes):
+            pool.view((-1,) + pool.shape[2:]).index_copy_(0, cur, v)
+            out[b] = v
+
+    def run(self, plans_per_stream):
+        """Dispatch one batch: S lists of plans in decode order, one
+        length. Returns per stream its (y [B,H,W], cb, cr) uint8 device
+        stacks in decode order, without synchronising."""
+        buf, layout, has_i8, deblock = self._host_batch(plans_per_stream)
+        P, pcm, cur = _unpack_batch(self._upload(buf), layout, has_i8,
+                                    self.mb_w, self.mb_h, self.pool_size)
+        B = cur.shape[0]
+        outs = tuple(torch.empty((B,) + p.shape[:1] + p.shape[2:],
+                                 dtype=p.dtype, device=self.device)
+                     for p in self.pool)
+        for b in range(B):
+            planes = _recon_core(
+                {k: v[b] for k, v in P.items()}, *self.pool,
+                None if pcm is None else tuple(p[b] for p in pcm),
+                mb_w=self.mb_w, mb_h=self.mb_h, has_i8=has_i8,
+                deblock=deblock, wavefronts=self.wavefronts)
+            self._store(b, cur[b], planes, outs)
+        return [tuple(o[:, s] for o in outs) for s in range(self.n)]
+
+    @staticmethod
+    def checksums(outs):
+        """Per-stream checksums of ``run``'s outputs: int32 [S, 3, 2],
+        row s over stream s's whole picture stack as one flat unit
+        (``golden.stack_checksum``, equal to ``golden.host_checksum``).
+        Waits for the device; only these numbers leave it."""
+        return np.stack([stack_checksum(*o).cpu().numpy() for o in outs])
+
+
+class BatchedPhaseB(MultiStreamPhaseB):
+    """One stream: a device-resident frame pool and a batched
+    multi-picture Phase B (``MultiStreamPhaseB`` with S = 1).
 
     Feed plans in decode order; their host frame indexes are translated
     into the compact device slot space by _DevSlotMap
-    (``plan_host``). ``wavefronts`` selects the intra+deblock pass
-    (``run_wavefronts``: the kernels on CUDA)."""
+    (``plan_host``)."""
 
     def __init__(self, mb_w, mb_h, pool_size, device=None,
                  wavefronts=run_wavefronts):
-        self.device = resolve_device(device)
-        self.mb_w, self.mb_h = mb_w, mb_h
-        self.wavefronts = wavefronts
-        H, W = mb_h * 16, mb_w * 16
-        u8 = torch.uint8
-        self.pool = (
-            torch.zeros((pool_size, H, W), dtype=u8, device=self.device),
-            torch.zeros((pool_size, H >> 1, W >> 1), dtype=u8,
-                        device=self.device),
-            torch.zeros((pool_size, H >> 1, W >> 1), dtype=u8,
-                        device=self.device))
-        self.smap = host._DevSlotMap(pool_size)
-
-    def _host_batch(self, plans):
-        """Pack a batch on the host: wire blob with remapped slots, the
-        dense-MC aux, palettes, cur_idx and PCM rows in one buffer."""
-        cur_idx = np.array([p.cur_idx for p in plans], np.int32)
-        res = pack_batches([plans])
-        if res is None:
-            raise ValueError("BatchedPhaseB takes the plans of the native "
-                             "Phase A (H264Decoder(native=True)), which "
-                             "the native wire packer serves")
-        (blob,), layout, (pals,), has_i8, deblock = res
-        fields = host._wire_views(blob, layout)
-        host._remap_batch(fields["slot"], cur_idx, plans, self.smap)
-        ((used, bi, _, _, _),) = host._derive_mc_aux(
-            [fields["slot"]], self.pool[0].shape[0], self.mb_w, self.mb_h)
-        extras = {"mc_used": used, "mc_bi": bi}
-        extras.update({"pal_" + k: v for k, v in pals.items()})
-        if any(p.pcm for p in plans):
-            extras["pcm"] = host._pcm_rows(plans, self.mb_w * self.mb_h)
-        buf, layout = _append_fields(blob, layout, extras)
-        return buf, layout, cur_idx, has_i8, deblock
+        super().__init__(1, mb_w, mb_h, pool_size, device=device,
+                         wavefronts=wavefronts)
 
     def run_async(self, plans):
         """Dispatch a batch; returns (y [N,H,W], cb, cr) uint8 device
         tensors without synchronising."""
-        buf, layout, cur_idx, has_i8, deblock = self._host_batch(plans)
-        hbuf = torch.from_numpy(buf)
-        if self.device.type == "cuda":
-            hbuf = hbuf.pin_memory()
-        dbuf = hbuf.to(self.device, non_blocking=True)
-        views = _device_views(dbuf, layout)
-        pals = {k[4:]: views.pop(k) for k in list(views)
-                if k.startswith("pal_")}
-        pcm_rows = views.pop("pcm", None)
-        N = len(plans)
-        py, pcb, pcr = self.pool
-        outs = (torch.empty((N,) + py.shape[1:], dtype=py.dtype,
-                            device=self.device),
-                torch.empty((N,) + pcb.shape[1:], dtype=pcb.dtype,
-                            device=self.device),
-                torch.empty((N,) + pcr.shape[1:], dtype=pcr.dtype,
-                            device=self.device))
-        for b in range(N):
-            pic = {k: ({s: a[b] for s, a in v.items()}
-                       if isinstance(v, dict) else v[b])
-                   for k, v in views.items()}
-            P = _unpack_wire(pic, pals)
-            pcm = (None if pcm_rows is None else
-                   _pcm_planes(pcm_rows[b], self.mb_w, self.mb_h))
-            y, cb, cr = _recon_core(
-                P, py, pcb, pcr, pcm, mb_w=self.mb_w, mb_h=self.mb_h,
-                has_i8=has_i8, deblock=deblock, wavefronts=self.wavefronts)
-            cur = int(cur_idx[b])
-            py[cur] = y
-            pcb[cur] = cb
-            pcr[cur] = cr
-            outs[0][b] = y
-            outs[1][b] = cb
-            outs[2][b] = cr
-        return outs
+        return self.run([plans])[0]

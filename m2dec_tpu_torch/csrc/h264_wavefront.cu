@@ -23,20 +23,30 @@
 // top-right MB's left-edge filter writes columns that this MB's window
 // reads).
 //
+// Streams. One launch runs a pass over S independent streams (pictures
+// of one size): planes are contiguous [S, H, W] stacks (cb and cr [S, H/2,
+// W/2]), per-MB metadata is [S * n, ...] in stream-major raster order, and
+// the progress scratch is int32 [S * mb_h + 1]: progress[s * mb_h + y] for
+// row y of stream s, then the ticket. for_stream() points a CTA at its
+// stream's planes, metadata and flags; the rest of a kernel sees one
+// stream. S = 1 is the single-picture case.
+//
 // Schedule (all four kernels): ONE launch per pass, one CTA per MB row at
-// a time. A CTA takes rows by ticket (atomicAdd on progress[mb_h]) until
-// they run out and walks its row left to right. Before MB x of row y
-// reads or writes a pixel of the row above it waits (one lane spinning on
-// an acquire load) until progress[y-1] reaches the count below; after its
-// stores it publishes progress[y] (__syncwarp, then one lane's
+// a time. A CTA takes rows by ticket (atomicAdd on progress[S * mb_h])
+// until they run out: ticket t is row t / S of stream t % S, so the
+// streams' rows interleave and row y - 1 of the same stream is ticket
+// t - S. It walks its row left to right. Before MB x of row y reads or
+// writes a pixel of the row above it waits (one lane spinning on an
+// acquire load) until its stream's progress[y-1] reaches the count below;
+// after its stores it publishes progress[y] (__syncwarp, then one lane's
 // __threadfence and a strong store: a release). A CTA only waits on a row
-// taken earlier by a CTA that is already running, so the scheme cannot
-// deadlock whatever the residency; a spin that outlasts SPIN_LIMIT cycles
-// traps, so a broken protocol ends the kernel with a CUDA error instead of
-// hanging the card. An MB that touches no pixel (intra: kind 0 or 4;
-// deblock: every edge of strength 0) only publishes, with no fence when
-// the CTA stored nothing since its last one. The wrapper zeroes
-// progress[0..mb_h] before each launch.
+// taken earlier (ticket t - S) by a CTA that is already running, so the
+// scheme cannot deadlock whatever the residency; a spin that outlasts
+// SPIN_LIMIT cycles traps, so a broken protocol ends the kernel with a
+// CUDA error instead of hanging the card. An MB that touches no pixel
+// (intra: kind 0 or 4; deblock: every edge of strength 0) only publishes,
+// with no fence when the CTA stored nothing since its last one. The
+// wrapper zeroes progress[0..S * mb_h] before each launch.
 //
 // What each kernel waits for:
 // - intra luma, deblock luma: progress[y-1] >= min(x + 2, mb_w), i.e. the
@@ -68,7 +78,11 @@
 //
 // What bounds them: the chain of dependent small steps inside each MB
 // times the critical path, plus mb_h - 1 handoffs between CTAs; not
-// bytes. So the chain is kept off global memory. Samples that another
+// bytes. No row waits on another stream, so S streams share one stream's
+// critical path (67 handoffs at 1080p, not 67 S) as long as the card holds
+// the CTAs: S * mb_h rows run on min(S * mb_h, resident CTAs) CTAs, and
+// past that the rows queue behind the tickets. The chain inside an MB is
+// kept off global memory. Samples that another
 // CTA wrote during this pass (the row above) are read through L2 (__ldcg:
 // an L1 line cached earlier can hold stale bytes of a row another CTA
 // wrote during this pass), after the acquire on the flag; an MB's own
@@ -256,9 +270,26 @@ struct IntraLumaArgs {
   uint8_t* y;
   const int *kind, *res_y, *i4_modes, *i4_avail, *i8_modes, *i8_avail,
       *i16_mode, *mb_avail, *tab4, *tab8;
-  int* progress;  // [mb_h] rows done, then the row ticket
-  int mb_w, mb_h, has_i8;
+  int* progress;  // [S * mb_h] rows done, then the row ticket (after
+                  // for_stream: the stream's [mb_h])
+  int mb_w, mb_h, has_i8, n_streams;
 };
+
+// stream s of a stacked launch: its plane, metadata and progress flags
+__device__ __forceinline__ IntraLumaArgs for_stream(IntraLumaArgs a, int s) {
+  const size_t n = (size_t)a.mb_w * a.mb_h * s;
+  a.y += n * 256;
+  a.kind += n;
+  a.res_y += n * 256;
+  a.i4_modes += n * 16;
+  a.i4_avail += n * 16;
+  a.i8_modes += n * 4;
+  a.i8_avail += n * 4;
+  a.i16_mode += n;
+  a.mb_avail += n;
+  a.progress += a.mb_h * s;
+  return a;
+}
 
 // per-MB metadata slots: i4 modes, i4 avail, i8 modes, i8 avail, kind,
 // i16 mode, mb avail
@@ -520,9 +551,9 @@ __device__ __forceinline__ void intra_commit(const IntraStage& s,
 }
 
 __global__ void __launch_bounds__(64)
-intra_luma_kernel(const IntraLumaArgs a) {
+intra_luma_kernel(const IntraLumaArgs sa) {
   const int lane = threadIdx.x & 31;
-  const int W = a.mb_w * 16;
+  const int W = sa.mb_w * 16, rows = sa.n_streams * sa.mb_h;
   // a window per slot (MB x in slot x & 1): row 0 = corner + top +
   // top-right, rows 1..16 = left + tile + the first 8 columns of the right
   // MB (the plain version's Ty)
@@ -532,14 +563,15 @@ intra_luma_kernel(const IntraLumaArgs a) {
   __shared__ int P4[9 * 16], P8[9 * 64];
   __shared__ int row_s;
   for (int o = threadIdx.x; o < 9 * 16; o += 64)
-    P4[o] = pack_tab(a.tab4, 16, o, 0);
-  if (a.has_i8)
+    P4[o] = pack_tab(sa.tab4, 16, o, 0);
+  if (sa.has_i8)
     for (int o = threadIdx.x; o < 9 * 64; o += 64)
-      P8[o] = pack_tab(a.tab8, 64, o, 1);
+      P8[o] = pack_tab(sa.tab8, 64, o, 1);
   const int li4 = i4_line_of_lane(lane), li8 = i8_line_of_lane(lane);
 
-  for (int mby; (mby = take_row(a.progress + a.mb_h, &row_s)) < a.mb_h;) {
-    const int y0 = mby * 16;
+  for (int t; (t = take_row(sa.progress + rows, &row_s)) < rows;) {
+    const IntraLumaArgs a = for_stream(sa, t % sa.n_streams);
+    const int mby = t / sa.n_streams, y0 = mby * 16;
     if (threadIdx.x >= 32) {
       // helper warp: stages MB x + 2 while MB x + 1 is computed, then
       // stores MB x and publishes it
@@ -608,9 +640,22 @@ intra_luma_kernel(const IntraLumaArgs a) {
 struct IntraChromaArgs {
   uint8_t *cb, *cr;
   const int *kind, *res_c, *chroma_mode, *mb_avail;
-  int* progress;  // [mb_h] rows done, then the row ticket
-  int mb_w, mb_h;
+  int* progress;  // [S * mb_h] rows done, then the row ticket
+  int mb_w, mb_h, n_streams;
 };
+
+__device__ __forceinline__ IntraChromaArgs for_stream(IntraChromaArgs a,
+                                                      int s) {
+  const size_t n = (size_t)a.mb_w * a.mb_h * s;
+  a.cb += n * 64;
+  a.cr += n * 64;
+  a.kind += n;
+  a.res_c += n * 128;
+  a.chroma_mode += n;
+  a.mb_avail += n;
+  a.progress += a.mb_h * s;
+  return a;
+}
 
 // what one lane loads of a staged MB: its word of the MB's samples (as the
 // pass found them), its 4 residuals, and the MB's kind, mode and
@@ -635,18 +680,19 @@ __device__ __forceinline__ void intra_chroma_stage(ChromaStage& s,
 }
 
 __global__ void __launch_bounds__(32)
-intra_chroma_kernel(const IntraChromaArgs a) {
+intra_chroma_kernel(const IntraChromaArgs sa) {
   const int lane = threadIdx.x & 31;
-  const int W = a.mb_w * 8, H = a.mb_h * 8;
+  const int W = sa.mb_w * 8, H = sa.mb_h * 8, rows = sa.n_streams * sa.mb_h;
   // lane: plane ci, its word (row r, columns c0..c0+3) and its edge
   // sample i of the plane's 16 (top 0..7, then left 0..7); g is the
   // plane's first lane
   const int ci = lane >> 4, i = lane & 15, g = lane & 16;
   const int r = (lane >> 1) & 7, c0 = 4 * (lane & 1);
-  uint8_t* plane = ci ? a.cr : a.cb;
 
-  for (int mby; (mby = take_row_warp(a.progress + a.mb_h, lane)) < a.mb_h;) {
-    const int y0 = mby * 8;
+  for (int t; (t = take_row_warp(sa.progress + rows, lane)) < rows;) {
+    const IntraChromaArgs a = for_stream(sa, t % sa.n_streams);
+    uint8_t* plane = ci ? a.cr : a.cb;
+    const int mby = t / sa.n_streams, y0 = mby * 8;
     ChromaStage cur, nxt;
     intra_chroma_stage(cur, a, 0, mby, lane);
     unsigned prev = 0;  // the previous MB's word of this lane (0 at x = 0)
@@ -835,9 +881,20 @@ __device__ void filter_line_chroma(int* v[4], EdgeParams e) {
 struct DeblockLumaArgs {
   uint8_t* y;
   const int *deb_str, *deb_str4, *deb_ab, *alpha, *beta, *tc0;
-  int* progress;  // [mb_h] rows done, then the row ticket
-  int mb_w, mb_h;
+  int* progress;  // [S * mb_h] rows done, then the row ticket
+  int mb_w, mb_h, n_streams;
 };
+
+__device__ __forceinline__ DeblockLumaArgs for_stream(DeblockLumaArgs a,
+                                                      int s) {
+  const size_t n = (size_t)a.mb_w * a.mb_h * s;
+  a.y += n * 256;
+  a.deb_str += n * 8;
+  a.deb_str4 += n * 2;
+  a.deb_ab += n * 24;
+  a.progress += a.mb_h * s;
+  return a;
+}
 
 // per-MB metadata slots: deb_str [2][4], deb_str4 [2], deb_ab [2][6][2]
 enum { D_STR = 0, D_STR4 = 8, D_AB = 10, D_N = 34 };
@@ -892,9 +949,9 @@ __device__ __forceinline__ void deblock_commit(
 }
 
 __global__ void __launch_bounds__(64)
-deblock_luma_kernel(const DeblockLumaArgs a) {
+deblock_luma_kernel(const DeblockLumaArgs sa) {
   const int lane = threadIdx.x & 31;
-  const int W = a.mb_w * 16;
+  const int W = sa.mb_w * 16, rows = sa.n_streams * sa.mb_h;
   // a window per slot (MB x in slot x & 1), (r, c) <-> pixel (y0 - 4 + r,
   // x0 - 4 + c): rows 0..3 the top MB's last rows, columns 0..3 the left
   // MB's last columns (the corner r, c < 4 is never read); rows padded
@@ -906,13 +963,14 @@ deblock_luma_kernel(const DeblockLumaArgs a) {
   __shared__ int sA[52], sB[52], sT[3 * 52];
   __shared__ int row_s;
   for (int i = threadIdx.x; i < 52; i += 64) {
-    sA[i] = __ldg(a.alpha + i);
-    sB[i] = __ldg(a.beta + i);
+    sA[i] = __ldg(sa.alpha + i);
+    sB[i] = __ldg(sa.beta + i);
   }
-  for (int i = threadIdx.x; i < 3 * 52; i += 64) sT[i] = __ldg(a.tc0 + i);
+  for (int i = threadIdx.x; i < 3 * 52; i += 64) sT[i] = __ldg(sa.tc0 + i);
 
-  for (int mby; (mby = take_row(a.progress + a.mb_h, &row_s)) < a.mb_h;) {
-    const int y0 = mby * 16;
+  for (int t; (t = take_row(sa.progress + rows, &row_s)) < rows;) {
+    const DeblockLumaArgs a = for_stream(sa, t % sa.n_streams);
+    const int mby = t / sa.n_streams, y0 = mby * 16;
     if (threadIdx.x >= 32) {
       // helper warp: stages MB x + 2 while MB x + 1 is filtered, then
       // stores MB x and publishes it
@@ -1007,9 +1065,21 @@ deblock_luma_kernel(const DeblockLumaArgs a) {
 struct DeblockChromaArgs {
   uint8_t *cb, *cr;
   const int *deb_str, *deb_str4, *deb_ab, *alpha, *beta, *tc0;
-  int* progress;  // [mb_h] tiles stored per row, then the row ticket
-  int mb_w, mb_h;
+  int* progress;  // [S * mb_h] tiles stored per row, then the row ticket
+  int mb_w, mb_h, n_streams;
 };
+
+__device__ __forceinline__ DeblockChromaArgs for_stream(DeblockChromaArgs a,
+                                                        int s) {
+  const size_t n = (size_t)a.mb_w * a.mb_h * s;
+  a.cb += n * 64;
+  a.cr += n * 64;
+  a.deb_str += n * 8;
+  a.deb_str4 += n * 2;
+  a.deb_ab += n * 24;
+  a.progress += a.mb_h * s;
+  return a;
+}
 
 // what one lane loads of a staged MB: its word of the MB's samples (as the
 // pass found them) and, per axis, what edge_params takes for its edge
@@ -1063,9 +1133,9 @@ __device__ __forceinline__ void deb_chroma_commit(
 }
 
 __global__ void __launch_bounds__(64)
-deblock_chroma_kernel(const DeblockChromaArgs a) {
+deblock_chroma_kernel(const DeblockChromaArgs sa) {
   const int lane = threadIdx.x & 31;
-  const int W = a.mb_w * 8;
+  const int W = sa.mb_w * 8, rows = sa.n_streams * sa.mb_h;
   // a window per slot (MB x in slot x & 3) and plane, (r, c) <-> pixel
   // (y0 - 2 + r, x0 - 2 + c): rows 0..1 the top MB's last rows, columns
   // 0..1 the left MB's last columns (the corner r, c < 2 is never read),
@@ -1076,18 +1146,19 @@ deblock_chroma_kernel(const DeblockChromaArgs a) {
   __shared__ int sA[52], sB[52], sT[3 * 52];
   __shared__ int row_s;
   for (int i = threadIdx.x; i < 52; i += 64) {
-    sA[i] = __ldg(a.alpha + i);
-    sB[i] = __ldg(a.beta + i);
+    sA[i] = __ldg(sa.alpha + i);
+    sB[i] = __ldg(sa.beta + i);
   }
-  for (int i = threadIdx.x; i < 3 * 52; i += 64) sT[i] = __ldg(a.tc0 + i);
+  for (int i = threadIdx.x; i < 3 * 52; i += 64) sT[i] = __ldg(sa.tc0 + i);
   // lane: plane ci; its filter line k of edge 2 * e2 on each axis; its
   // word of the tile (row tr, columns 4 * th..4 * th + 3)
   const int ci = lane >> 4, e2 = (lane >> 3) & 1, k = lane & 7;
   const int tr = (lane >> 1) & 7, th = lane & 1;
-  uint8_t* plane = ci ? a.cr : a.cb;
 
-  for (int mby; (mby = take_row(a.progress + a.mb_h, &row_s)) < a.mb_h;) {
-    const int y0 = mby * 8;
+  for (int t; (t = take_row(sa.progress + rows, &row_s)) < rows;) {
+    const DeblockChromaArgs a = for_stream(sa, t % sa.n_streams);
+    uint8_t* plane = ci ? a.cr : a.cb;
+    const int mby = t / sa.n_streams, y0 = mby * 8;
     if (threadIdx.x >= 32) {
       // helper warp: stages MB x + 2 while MB x + 1 is filtered; once MB x
       // is, stores tile x - 1 (final now: MB x has filtered its columns
@@ -1171,10 +1242,11 @@ deblock_chroma_kernel(const DeblockChromaArgs a) {
   }
 }
 
-// CTAs of a row-schedule launch: one per MB row, at most as many as can
-// be resident (the ticket lets fewer CTAs take all the rows)
+// CTAs of a row-schedule launch: one per MB row of all the streams, at
+// most as many as can be resident (the ticket lets fewer CTAs take all the
+// rows)
 template <typename K>
-cudaError_t row_grid(K kernel, int threads, int mb_h, int* grid) {
+cudaError_t row_grid(K kernel, int threads, int rows, int* grid) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -1184,7 +1256,7 @@ cudaError_t row_grid(K kernel, int threads, int mb_h, int* grid) {
                                                         threads, 0);
   if (err == cudaSuccess && sms * per_sm < 1)
     err = cudaErrorInvalidConfiguration;
-  *grid = mb_h < sms * per_sm ? mb_h : sms * per_sm;
+  *grid = rows < sms * per_sm ? rows : sms * per_sm;
   return err;
 }
 
@@ -1192,69 +1264,80 @@ cudaError_t row_grid(K kernel, int threads, int mb_h, int* grid) {
 
 extern "C" {
 
-// progress: int32 [mb_h + 1], zero (the wrapper's scratch)
+// planes [S, ...], metadata [S * mb_w * mb_h, ...]; progress: int32
+// [S * mb_h + 1], zero (the wrapper's scratch)
 int h264_intra_luma(void* y, const void* kind, const void* res_y,
                     const void* i4_modes, const void* i4_avail,
                     const void* i8_modes, const void* i8_avail,
                     const void* i16_mode, const void* mb_avail,
                     const void* tab4, const void* tab8, void* progress,
-                    int has_i8, int mb_w, int mb_h, void* stream) {
+                    int has_i8, int mb_w, int mb_h, int n_streams,
+                    void* stream) {
   const IntraLumaArgs a = {
       (uint8_t*)y, (const int*)kind, (const int*)res_y,
       (const int*)i4_modes, (const int*)i4_avail, (const int*)i8_modes,
       (const int*)i8_avail, (const int*)i16_mode, (const int*)mb_avail,
       (const int*)tab4, (const int*)tab8, (int*)progress, mb_w, mb_h,
-      has_i8};
+      has_i8, n_streams};
   int grid = 0;
-  const cudaError_t err = row_grid(intra_luma_kernel, 64, mb_h, &grid);
+  const cudaError_t err =
+      row_grid(intra_luma_kernel, 64, n_streams * mb_h, &grid);
   if (err != cudaSuccess) return (int)err;
   intra_luma_kernel<<<grid, 64, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// progress: int32 [mb_h + 1], zero (the wrapper's scratch)
+// planes [S, ...], metadata [S * mb_w * mb_h, ...]; progress: int32
+// [S * mb_h + 1], zero (the wrapper's scratch)
 int h264_intra_chroma(void* cb, void* cr, const void* kind,
                       const void* res_c, const void* chroma_mode,
                       const void* mb_avail, void* progress, int mb_w,
-                      int mb_h, void* stream) {
+                      int mb_h, int n_streams, void* stream) {
   const IntraChromaArgs a = {
       (uint8_t*)cb, (uint8_t*)cr, (const int*)kind, (const int*)res_c,
       (const int*)chroma_mode, (const int*)mb_avail, (int*)progress, mb_w,
-      mb_h};
+      mb_h, n_streams};
   int grid = 0;
-  const cudaError_t err = row_grid(intra_chroma_kernel, 32, mb_h, &grid);
+  const cudaError_t err =
+      row_grid(intra_chroma_kernel, 32, n_streams * mb_h, &grid);
   if (err != cudaSuccess) return (int)err;
   intra_chroma_kernel<<<grid, 32, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// progress: int32 [mb_h + 1], zero (the wrapper's scratch)
+// planes [S, ...], metadata [S * mb_w * mb_h, ...]; progress: int32
+// [S * mb_h + 1], zero (the wrapper's scratch)
 int h264_deblock_luma(void* y, const void* deb_str, const void* deb_str4,
                       const void* deb_ab, const void* alpha,
                       const void* beta, const void* tc0, void* progress,
-                      int mb_w, int mb_h, void* stream) {
+                      int mb_w, int mb_h, int n_streams, void* stream) {
   const DeblockLumaArgs a = {
       (uint8_t*)y, (const int*)deb_str, (const int*)deb_str4,
       (const int*)deb_ab, (const int*)alpha, (const int*)beta,
-      (const int*)tc0, (int*)progress, mb_w, mb_h};
+      (const int*)tc0, (int*)progress, mb_w, mb_h, n_streams};
   int grid = 0;
-  const cudaError_t err = row_grid(deblock_luma_kernel, 64, mb_h, &grid);
+  const cudaError_t err =
+      row_grid(deblock_luma_kernel, 64, n_streams * mb_h, &grid);
   if (err != cudaSuccess) return (int)err;
   deblock_luma_kernel<<<grid, 64, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// progress: int32 [mb_h + 1], zero (the wrapper's scratch)
+// planes [S, ...], metadata [S * mb_w * mb_h, ...]; progress: int32
+// [S * mb_h + 1], zero (the wrapper's scratch)
 int h264_deblock_chroma(void* cb, void* cr, const void* deb_str,
                         const void* deb_str4, const void* deb_ab,
                         const void* alpha, const void* beta, const void* tc0,
-                        void* progress, int mb_w, int mb_h, void* stream) {
+                        void* progress, int mb_w, int mb_h, int n_streams,
+                        void* stream) {
   const DeblockChromaArgs a = {
       (uint8_t*)cb, (uint8_t*)cr, (const int*)deb_str,
       (const int*)deb_str4, (const int*)deb_ab, (const int*)alpha,
-      (const int*)beta, (const int*)tc0, (int*)progress, mb_w, mb_h};
+      (const int*)beta, (const int*)tc0, (int*)progress, mb_w, mb_h,
+      n_streams};
   int grid = 0;
-  const cudaError_t err = row_grid(deblock_chroma_kernel, 64, mb_h, &grid);
+  const cudaError_t err =
+      row_grid(deblock_chroma_kernel, 64, n_streams * mb_h, &grid);
   if (err != cudaSuccess) return (int)err;
   deblock_chroma_kernel<<<grid, 64, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();

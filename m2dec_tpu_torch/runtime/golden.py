@@ -10,11 +10,15 @@ rows — the bytes the reference's raw writer emits),
 computed on the device in int64, so only two numbers leave it.
 ``frame_checksums`` is the twin of the JAX package's per-picture
 ``_jitted_checksum`` (H.264 ``reconstruct.py``), for any codec's
-[N, ...] plane stacks.
+[N, ...] plane stacks; ``stack_checksum`` takes a stream's whole picture
+stack as one unit, as the JAX ``MultiStreamPhaseB.checksums`` does, and
+``host_checksum`` is the numpy copy of the JAX package's
+``host_checksum`` that both are held to.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -48,3 +52,22 @@ def frame_checksums(y, cb, cr):
 
     v = torch.stack([one(y), one(cb), one(cr)], dim=1)
     return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32)
+
+
+def stack_checksum(y, cb, cr):
+    """One stream's whole picture stack [N, ...] as one flat unit: int32
+    [3, 2] on the device, equal to host_checksum(y, cb, cr)."""
+    return frame_checksums(y[None], cb[None], cr[None])[0]
+
+
+def host_checksum(y, cb, cr):
+    """The host (numpy) checksum of planes or plane stacks: int32 [3, 2],
+    (sum, sum of b_i*((i mod 8191)+1)) mod 2^32 over each plane's bytes
+    in C order."""
+    out = np.zeros((3, 2), np.uint64)
+    for i, a in enumerate((y, cb, cr)):
+        flat = np.ascontiguousarray(a).reshape(-1).astype(np.uint64)
+        w = (np.arange(flat.size, dtype=np.uint64) % 8191) + 1
+        out[i, 0] = flat.sum() & 0xFFFFFFFF
+        out[i, 1] = (flat * w % (1 << 32)).sum() & 0xFFFFFFFF
+    return out.astype(np.int64).astype(np.uint32).view(np.int32)

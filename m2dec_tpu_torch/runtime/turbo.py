@@ -71,7 +71,7 @@ class TurboH264Decoder:
             for p in undisp:
                 pool_sizes.pop(id(p), None)
             if batcher is None or (batcher.mb_w, batcher.mb_h,
-                                   batcher.pool[0].shape[0]) != geom:
+                                   batcher.pool_size) != geom:
                 batcher = BatchedPhaseB(*geom, device=self.device)
             outs = batcher.run_async(undisp)
             for i, p in enumerate(undisp):

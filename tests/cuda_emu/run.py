@@ -6,13 +6,15 @@ The kernel source is compiled with g++ against ``cuda_runtime.h`` here,
 which stubs the CUDA intrinsics the kernels use (shuffles, warp and
 named barriers, ``__ldcg``, the acquire/relaxed flag accesses, clock64):
 one CTA runs as threads (two warps, 64 threads; one warp for intra
-chroma) and takes every MB row in turn. Its
-output is held against the plain versions (``codecs/h264/
-wavefront.py``) on random plans, byte for byte, and every row's progress
-flag must end at mb_w. It checks the kernels' arithmetic, windows, the
-slot hand-over between the two warps of a CTA and the window carried
-from MB to MB; races between CTAs, the L1/L2 behaviour and the compiler
-for sm_90a show only on the card.
+chroma) and takes every MB row in turn, by ticket. Each launch is a
+stack of 1, 2 or 3 streams with different plans (random, narrow,
+all-intra, zero deblock strength); its output is held against the plain
+versions (``codecs/h264/wavefront.py``) run on each stream alone, byte
+for byte, and every row's progress flag of every stream must end at
+mb_w. It checks the kernels' arithmetic, windows, the slot hand-over
+between the two warps of a CTA, the window carried from MB to MB and the
+per-stream addressing of a stacked launch; races between CTAs, the L1/L2
+behaviour and the compiler for sm_90a show only on the card.
 
     python3 tests/cuda_emu/run.py        # from the root of a checkout
 """
@@ -66,35 +68,35 @@ extern "C" {
 void emu_intra_luma(void* y, const void* kind, const void* res_y,
     const void* i4m, const void* i4a, const void* i8m, const void* i8a,
     const void* i16, const void* mbav, const void* tab4, const void* tab8,
-    void* progress, int has_i8, int mb_w, int mb_h) {
+    void* progress, int has_i8, int mb_w, int mb_h, int n_streams) {
   IntraLumaArgs a = {(uint8_t*)y, (const int*)kind, (const int*)res_y,
     (const int*)i4m, (const int*)i4a, (const int*)i8m, (const int*)i8a,
     (const int*)i16, (const int*)mbav, (const int*)tab4, (const int*)tab8,
-    (int*)progress, mb_w, mb_h, has_i8};
+    (int*)progress, mb_w, mb_h, has_i8, n_streams};
   run1(intra_luma_kernel, a);
 }
 void emu_deblock_luma(void* y, const void* s, const void* s4,
     const void* ab, const void* al, const void* be, const void* tc,
-    void* progress, int mb_w, int mb_h) {
+    void* progress, int mb_w, int mb_h, int n_streams) {
   DeblockLumaArgs a = {(uint8_t*)y, (const int*)s, (const int*)s4,
     (const int*)ab, (const int*)al, (const int*)be, (const int*)tc,
-    (int*)progress, mb_w, mb_h};
+    (int*)progress, mb_w, mb_h, n_streams};
   run1(deblock_luma_kernel, a);
 }
 void emu_intra_chroma(void* cb, void* cr, const void* kind,
     const void* res_c, const void* mode, const void* mbav, void* progress,
-    int mb_w, int mb_h) {
+    int mb_w, int mb_h, int n_streams) {
   IntraChromaArgs a = {(uint8_t*)cb, (uint8_t*)cr, (const int*)kind,
     (const int*)res_c, (const int*)mode, (const int*)mbav, (int*)progress,
-    mb_w, mb_h};
+    mb_w, mb_h, n_streams};
   run1(intra_chroma_kernel, a, 32);
 }
 void emu_deblock_chroma(void* cb, void* cr, const void* s, const void* s4,
     const void* ab, const void* al, const void* be, const void* tc,
-    void* progress, int mb_w, int mb_h) {
+    void* progress, int mb_w, int mb_h, int n_streams) {
   DeblockChromaArgs a = {(uint8_t*)cb, (uint8_t*)cr, (const int*)s,
     (const int*)s4, (const int*)ab, (const int*)al, (const int*)be,
-    (const int*)tc, (int*)progress, mb_w, mb_h};
+    (const int*)tc, (int*)progress, mb_w, mb_h, n_streams};
   run1(deblock_chroma_kernel, a);
 }
 }
@@ -125,18 +127,20 @@ def build():
                     str(BUILD / "emu.cpp"), "-lpthread"], check=True)
     lib = ctypes.CDLL(str(BUILD / "libemu.so"))
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.emu_intra_luma.argtypes = [vp] * 12 + [i] * 3
-    lib.emu_deblock_luma.argtypes = [vp] * 8 + [i] * 2
-    lib.emu_intra_chroma.argtypes = [vp] * 7 + [i] * 2
-    lib.emu_deblock_chroma.argtypes = [vp] * 9 + [i] * 2
+    lib.emu_intra_luma.argtypes = [vp] * 12 + [i] * 4
+    lib.emu_deblock_luma.argtypes = [vp] * 8 + [i] * 3
+    lib.emu_intra_chroma.argtypes = [vp] * 7 + [i] * 3
+    lib.emu_deblock_chroma.argtypes = [vp] * 9 + [i] * 3
     return lib
 
 
 def run_kernel(lib, tabs, name, planes, P, has_i8, mb_w, mb_h):
-    """Kernel ``name`` on copies of ``planes`` in the emulation; returns
+    """Kernel ``name`` on copies of ``planes`` ([S, H, W] stacks, P
+    [S * n, ...]) in the emulation, one launch for the S streams; returns
     (the planes, the progress flags)."""
     got = [t.clone() for t in planes]
-    prog = torch.zeros(mb_h + 1, dtype=torch.int32)
+    S = planes[0].shape[0]
+    prog = torch.zeros(S * mb_h + 1, dtype=torch.int32)
     ptrs = [t.data_ptr() for t in got]
     deb = [P[k] for k in ("deb_str", "deb_str4", "deb_ab")] + [
         tabs[k] for k in ("alpha", "beta", "tc0")]
@@ -146,16 +150,44 @@ def run_kernel(lib, tabs, name, planes, P, has_i8, mb_w, mb_h):
             "i8_avail", "i16_mode", "mb_avail")]
         meta += [tabs["i4_tab"], tabs["i8_tab"], prog]
         lib.emu_intra_luma(*ptrs, *(t.data_ptr() for t in meta),
-                           int(has_i8), mb_w, mb_h)
+                           int(has_i8), mb_w, mb_h, S)
     elif name == "intra_chroma":
         meta = [P[k] for k in ("kind", "res_c", "chroma_mode",
                                "mb_avail")] + [prog]
         lib.emu_intra_chroma(*ptrs, *(t.data_ptr() for t in meta), mb_w,
-                             mb_h)
+                             mb_h, S)
     else:
         fn = getattr(lib, "emu_" + name)
-        fn(*ptrs, *(t.data_ptr() for t in deb + [prog]), mb_w, mb_h)
+        fn(*ptrs, *(t.data_ptr() for t in deb + [prog]), mb_w, mb_h, S)
     return got, prog
+
+
+VARIANTS = ("wide", "narrow", "intra", "zero")
+
+
+def stream_inputs(mb_w, mb_h, seed, variant):
+    """One stream's plan (numpy) and planes (torch) for ``variant``."""
+    Pn = rand_wavefront_plan(
+        mb_w, mb_h, seed, wide=variant != "narrow",
+        kinds=(1, 2, 3) if variant == "intra" else None)
+    if variant == "zero":
+        Pn["deb_str"][:] = 0
+        Pn["deb_str4"][:] = 0
+    return torch_plan(Pn), [torch.from_numpy(a)
+                            for a in rand_planes(mb_w, mb_h, seed)]
+
+
+def plain_runs(P, y, cb, cr, mb_w, mb_h):
+    """(name, has_i8, planes, the plain versions' output) of every run."""
+    runs = [("intra_luma", h, (y,), (WF.intra_luma_plain(
+        y, P, h, mb_w, mb_h),)) for h in (True, False)]
+    return runs + [
+        ("deblock_luma", None, (y,),
+         (WF.deblock_luma_plain(y, P, mb_w, mb_h),)),
+        ("intra_chroma", None, (cb, cr),
+         WF.intra_chroma_plain(cb, cr, P, mb_w, mb_h)),
+        ("deblock_chroma", None, (cb, cr),
+         WF.deblock_chroma_plain(cb, cr, P, mb_w, mb_h))]
 
 
 def main():
@@ -164,36 +196,31 @@ def main():
     bad = 0
     for mb_w, mb_h in [(4, 2), (5, 3), (1, 9), (11, 9), (3, 20), (20, 12)]:
         for seed in (1, 2):
-            for variant in ("wide", "narrow", "intra", "zero"):
-                Pn = rand_wavefront_plan(
-                    mb_w, mb_h, seed, wide=variant != "narrow",
-                    kinds=(1, 2, 3) if variant == "intra" else None)
-                if variant == "zero":
-                    Pn["deb_str"][:] = 0
-                    Pn["deb_str4"][:] = 0
-                P = torch_plan(Pn)
-                y, cb, cr = (torch.from_numpy(a)
-                             for a in rand_planes(mb_w, mb_h, seed))
-                runs = [("intra_luma", h, (y,), (WF.intra_luma_plain(
-                    y, P, h, mb_w, mb_h),)) for h in (True, False)]
-                runs += [
-                    ("deblock_luma", None, (y,),
-                     (WF.deblock_luma_plain(y, P, mb_w, mb_h),)),
-                    ("intra_chroma", None, (cb, cr),
-                     WF.intra_chroma_plain(cb, cr, P, mb_w, mb_h)),
-                    ("deblock_chroma", None, (cb, cr),
-                     WF.deblock_chroma_plain(cb, cr, P, mb_w, mb_h))]
-                for name, has_i8, planes, want in runs:
+            for S in (1, 2, 3):
+                # stream s: its own seed and variant
+                variants = [VARIANTS[(seed + S + s) % 4] for s in range(S)]
+                ins = [stream_inputs(mb_w, mb_h, 10 * seed + s, v)
+                       for s, v in enumerate(variants)]
+                P = {k: torch.cat([p[k] for p, _ in ins]) for k in ins[0][0]}
+                y, cb, cr = (torch.stack(t) for t in zip(*(pl for _, pl in
+                                                           ins)))
+                per_stream = [plain_runs(p, *pl, mb_w, mb_h)
+                              for p, pl in ins]
+                for r, (name, has_i8, _, _) in enumerate(per_stream[0]):
+                    planes = (y,) if name.endswith("luma") else (cb, cr)
+                    want = [torch.stack([runs[r][3][i] for runs in
+                                         per_stream])
+                            for i in range(len(planes))]
                     got, prog = run_kernel(lib, tabs, name, planes, P,
                                            has_i8, mb_w, mb_h)
                     err = max((g.int() - w.int()).abs().max().item()
                               for g, w in zip(got, want))
-                    done = prog[:mb_h].tolist() == [mb_w] * mb_h
+                    done = prog[:S * mb_h].tolist() == [mb_w] * (S * mb_h)
                     if err or not done:
                         bad += 1
-                        print(f"{name} {mb_w}x{mb_h} seed {seed} {variant} "
-                              f"has_i8 {has_i8}: max abs err {err}, "
-                              f"progress {prog.tolist()}")
+                        print(f"{name} {mb_w}x{mb_h} seed {seed} streams "
+                              f"{variants} has_i8 {has_i8}: max abs err "
+                              f"{err}, progress {prog.tolist()}")
     print(f"{bad} mismatches")
     return 1 if bad else 0
 

@@ -1,7 +1,8 @@
 """The CUDA kernels of m2dec_tpu_torch against their plain PyTorch
 versions, on the card: the four H.264 wavefront kernels (all on the row
 schedule: one launch per pass) on random plans, all-intra and
-zero-strength plans, and 20 times over, and the MPEG-2 8x8 IDCT on
+zero-strength plans, 20 times over, and on stacks of S streams in one
+launch against S single-stream launches, and the MPEG-2 8x8 IDCT on
 random blocks and on MPEG-2 streams; exact equality (integer decode, tolerance 0). The
 tests marked ``cuda`` skip on a machine without a GPU. CPU tests show
 the kernel dispatch cannot fall back to the plain version."""
@@ -163,6 +164,82 @@ def test_row_kernels_repeat(cuda, name):
     n0 = WK.LAUNCHES[name]
     outs = [_outs(kern(*(t.clone() for t in planes), *args))
             for _ in range(20)]
+    torch.cuda.synchronize()
+    assert WK.LAUNCHES[name] == n0 + 20
+    for got in outs:
+        for g, w in zip(got, want):
+            _same(g, w)
+
+
+def _stack_inputs(mb_w, mb_h, S, dev):
+    """S streams, each with its own plan and planes: stream 0 all intra
+    (kinds 1-3), stream 1 with every deblock edge at strength 0, the
+    rest random. Returns (per-stream plans, per-stream planes, the
+    stacked plan [S * n, ...], the stacked planes [S, ...])."""
+    Ps, planes = [], []
+    for s in range(S):
+        P, y, cb, cr = _inputs(mb_w, mb_h, 40 + s, dev,
+                               kinds=(1, 2, 3) if s == 0 else None)
+        if s == 1:
+            P["deb_str"].zero_()
+            P["deb_str4"].zero_()
+        Ps.append(P)
+        planes.append((y, cb, cr))
+    P = {k: torch.cat([p[k] for p in Ps]) for k in Ps[0]}
+    return Ps, planes, P, tuple(torch.stack(t) for t in zip(*planes))
+
+
+def _single_launches(name, Ps, planes, mb_w, mb_h):
+    """Pass ``name`` launched once per stream, stacked: [S, ...] per
+    plane."""
+    kern = PASSES[name][0]
+    outs = [_outs(kern(*(t.clone() for t in _pass_planes(name, *pl)),
+                       *_pass_args(name, P, mb_w, mb_h)))
+            for P, pl in zip(Ps, planes)]
+    return [torch.stack(o) for o in zip(*outs)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mb_w,mb_h,S", [
+    (120, 68, 2), (120, 68, 8), (11, 9, 2), (11, 9, 8), (3, 150, 32)])
+@pytest.mark.parametrize("name", list(PASSES))
+def test_row_kernels_stacked(cuda, name, mb_w, mb_h, S):
+    """One launch over S streams ([S, H, W] planes, [S * n] plans, the
+    streams' rows interleaved by ticket) equals S single-stream launches,
+    and, at the small sizes, the plain version on streams 0 and 1. With
+    32 streams of 150 rows there are more rows than resident CTAs, so
+    CTAs take several rows."""
+    Ps, planes, P, stacked = _stack_inputs(mb_w, mb_h, S, cuda)
+    kern, plain = PASSES[name]
+    n0 = WK.LAUNCHES[name]
+    got = _outs(kern(*(t.clone() for t in _pass_planes(name, *stacked)),
+                     *_pass_args(name, P, mb_w, mb_h)))
+    torch.cuda.synchronize()
+    assert WK.LAUNCHES[name] == n0 + 1
+    for g, w in zip(got, _single_launches(name, Ps, planes, mb_w, mb_h)):
+        _same(g, w)
+    if mb_w * mb_h <= 450:
+        for s in (0, 1):
+            want = _outs(plain(*_pass_planes(name, *planes[s]),
+                               *_pass_args(name, Ps[s], mb_w, mb_h)))
+            for g, w in zip(got, want):
+                _same(g[s], w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(PASSES))
+def test_row_kernels_stacked_repeat(cuda, name):
+    """Eight 1080p streams through one stacked launch 20 times, each run
+    byte-equal to the eight single-stream launches and 1 launch: the race
+    check of the interleaved (stream, row) tickets."""
+    mb_w, mb_h, S = 120, 68, 8
+    Ps, planes, P, stacked = _stack_inputs(mb_w, mb_h, S, cuda)
+    kern = PASSES[name][0]
+    want = _single_launches(name, Ps, planes, mb_w, mb_h)
+    args = _pass_args(name, P, mb_w, mb_h)
+    n0 = WK.LAUNCHES[name]
+    outs = [_outs(kern(*(t.clone() for t in _pass_planes(name, *stacked)),
+                       *args)) for _ in range(20)]
     torch.cuda.synchronize()
     assert WK.LAUNCHES[name] == n0 + 20
     for got in outs:

@@ -130,7 +130,8 @@ def _rand_inter_plan(mb_w, mb_h, R_, seed):
 @pytest.mark.parametrize("with_aux", [False, True])
 def test_inter_pass_dense(with_aux):
     """The dense MC path, plain (both predictions for every cell) and
-    with the host aux (compact used-slot list + bi-cell list)."""
+    with the host aux (compact used-slot list + bi-cell list); the port
+    takes a leading stream axis (here one stream)."""
     mb_w, mb_h, pool = 3, 2, 4
     H, W = mb_h * 16, mb_w * 16
     mv, slot, wp = _rand_inter_plan(mb_w, mb_h, pool, 9)
@@ -146,9 +147,10 @@ def test_inter_pass_dense(with_aux):
         slot, used, bi = sf[0], used[0], bi[0]
         assert (bi < mb_w * mb_h * 16).any() and (bi == mb_w * mb_h * 16).any()
     got = TR.inter_pass(
-        _t(mv), _t(slot), _t(wp), _t(ry), _t(rcb), _t(rcr), mb_w, mb_h,
-        R._HP_TAB, used=None if used is None else _t(used),
-        bi_idx=None if bi is None else _t(bi))
+        _t(mv), _t(slot), _t(wp), _t(ry)[None], _t(rcb)[None],
+        _t(rcr)[None], mb_w, mb_h, R._HP_TAB,
+        used=None if used is None else _t(used)[None],
+        bi_idx=None if bi is None else _t(bi)[None])
     want = R.inter_pass(
         jnp.asarray(mv), jnp.asarray(slot), jnp.asarray(wp),
         jnp.asarray(ry), jnp.asarray(rcb), jnp.asarray(rcr), mb_w, mb_h,

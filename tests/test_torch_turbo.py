@@ -138,8 +138,9 @@ def test_torch_golden_frame_checksum(crop):
 def test_torch_port_never_imports_jax(tmp_path):
     """In a fresh interpreter (the test process itself has jax loaded by
     conftest), the port imports every one of its modules and decodes a
-    48x32 H.264 and an 80x48 MPEG-2 stream; neither jax nor any module
-    of m2dec_tpu is loaded."""
+    48x32 H.264 stream (TurboH264Decoder, and twice side by side through
+    MultiStreamPhaseB) and an 80x48 MPEG-2 stream; neither jax nor any
+    module of m2dec_tpu is loaded."""
     h264 = tmp_path / "s.264"
     h264.write_bytes(_b_stream())
     m2v = tmp_path / "s.m2v"
@@ -158,6 +159,17 @@ def test_torch_port_never_imports_jax(tmp_path):
         ".decode_all()\n"
         "assert len(frames) == 9, len(frames)\n"
         "assert all(np.asarray(f.y).shape == (32, 48) for f in frames)\n"
+        "from m2dec_tpu_torch.codecs.h264.decoder import H264Decoder\n"
+        "from m2dec_tpu_torch.codecs.h264.reconstruct import (\n"
+        "    MultiStreamPhaseB)\n"
+        "dec = H264Decoder(native=True, plan_alloc='empty')\n"
+        "dec.set_data(data)\n"
+        "while dec.decode_picture() == 1:\n"
+        "    pass\n"
+        "ms = MultiStreamPhaseB(2, dec.max_x, dec.max_y, len(dec.frames),\n"
+        "                       device='cpu')\n"
+        "cks = MultiStreamPhaseB.checksums(ms.run([dec.plans] * 2))\n"
+        "assert cks.shape == (2, 3, 2) and (cks[0] == cks[1]).all()\n"
         f"data = open({str(m2v)!r}, 'rb').read()\n"
         "frames = TurboMpeg2Decoder(data, batch=3, device='cpu')"
         ".decode_all()\n"

@@ -176,7 +176,8 @@ def build_variant():
         raise RuntimeError(f"nvcc failed:\n{res.stdout}\n{res.stderr}")
     lib = ctypes.CDLL(str(so))
     fn = lib.probe_deblock_chroma_one_warp
-    fn.argtypes = _build.LIBRARIES["h264_wavefront"]["h264_deblock_chroma"]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     report = [line.strip() for line in (res.stdout + res.stderr).splitlines()
               if "Used" in line or "spill" in line]
@@ -185,7 +186,8 @@ def build_variant():
 
 def capture_pictures(dev):
     """(cb, cr, P, mb_w, mb_h) before deblock chroma, for pictures 0 and
-    2 of chip_smoke.py's 1080p H.264 stream."""
+    2 of chip_smoke.py's 1080p H.264 stream (BatchedPhaseB hands the
+    passes [1, H, W] stacks of its one stream)."""
     import chip_smoke as CS
     from m2dec_tpu_torch.codecs.h264 import wavefront_kernels as WK
     from m2dec_tpu_torch.codecs.h264.decoder import H264Decoder
@@ -205,7 +207,7 @@ def capture_pictures(dev):
     def capturing(y, cb, cr, P, has_i8, deblock, mbw, mbh):
         y = WK.intra_luma(y, P, has_i8, mbw, mbh)
         cb, cr = WK.intra_chroma(cb, cr, P, mbw, mbh)
-        pics[len(pics)] = (cb.clone(), cr.clone(),
+        pics[len(pics)] = (cb[0].clone(), cr[0].clone(),
                            {n: v.clone() for n, v in P.items()}, mbw, mbh)
         if deblock:
             y = WK.deblock_luma(y, P, mbw, mbh)
