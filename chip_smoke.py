@@ -10,7 +10,11 @@ Drives the port's two main paths at 1920x1088, each on the bench's
   on the card with the CUDA 8x8 IDCT kernel;
 * H.264 on 4 and 8 streams at once through MultiStreamPhaseB (the shape
   of bench.py's turbo_multi): native Phase A on a thread pool, then each
-  picture step of all the streams with one launch per wavefront pass.
+  picture step of all the streams with one launch per wavefront pass;
+* H.265 through TurboH265Decoder on bench.py's 1080p H.265 stream
+  (IPBPBP, batch 6): native C++ Phase A, Phase B as plain torch ops on
+  the card (H.265 has no TPU kernel), held against the port's CPU Phase
+  B, and four small streams against the Python decoder's oracle.
 
 Then it holds each kernel against its plain PyTorch version on the card,
 each path against its plain path, against a reference (the numpy plan
@@ -46,6 +50,10 @@ SEED = 42
 #: the second 1080p H.264 stream of the multi-stream phase
 SEED2 = 43
 BATCH = len(PATTERN)
+#: the H.265 stage of bench.py (bench.py:552-555, 596): its pattern and
+#: TurboH265Decoder batch
+H265_PATTERN = "IPBPBP"
+H265_BATCH = 6
 #: stream counts of the multi-stream phase (bench.py's sweep)
 MULTI_STREAMS = (4, 8)
 #: Phase A threads of the multi-stream phase (bench.py's default)
@@ -74,9 +82,36 @@ STREAMS = {
         ".generate('IPPBP')"),
     "m2v_fieldpic_80x48.m2v": (
         "mpeg2_enc", "Mpeg2FieldPicGen(80, 48, seed=5).generate('IIPPBBPP')"),
+    # bench.py:552-555, the H.265 stage's stream
+    f"h265_{W}x{H}_s{SEED}.265": (
+        "h265_enc",
+        f"H265StreamGen({W}, {H}, seed={SEED}, qp=32, cbf_prob=0.4, "
+        f"modes=ALL_MODES, tmvp=1, deblock=1, sao=1, max_level=1)"
+        f".generate({H265_PATTERN!r})"),
+    "h265_ctb32_strong_96x64.265": (
+        "h265_enc",
+        "H265StreamGen(96, 64, seed=22, ctb_log2=5, qp=14, cbf_prob=0.3, "
+        "modes=ALL_MODES, strong_smoothing=1, split_prob=0.3).generate(2)"),
+    "h265_tskip_sdh_64x48.265": (
+        "h265_enc",
+        "H265StreamGen(64, 48, seed=32, qp=14, cbf_prob=0.7, "
+        "modes=ALL_MODES, transform_skip=1, sign_data_hiding=1, "
+        "split_prob=0.7, nxn_prob=0.8).generate(2)"),
+    "h265_amp_64x48.265": (
+        "h265_enc",
+        "H265StreamGen(64, 48, seed=92, qp=14, cbf_prob=0.4, "
+        "modes=ALL_MODES, tmvp=1, part_mode_prob=0.6, amp=1)"
+        ".generate('IPB')"),
+    # row-aligned 3-slice pictures (slices_per_pic is read by generate)
+    "h265_slices3_64x96.265": (
+        "h265_enc",
+        "(lambda g: (setattr(g, 'slices_per_pic', 3), "
+        "g.generate('IPBP'))[1])(H265StreamGen(64, 96, seed=203, qp=30, "
+        "cbf_prob=0.5, modes=ALL_MODES, tmvp=1, deblock=1, sao=1, "
+        "max_level=1))"),
 }
 (H264_STREAM, H264_STREAM2, M2V_STREAM, HIGH_STREAM, IPCM_STREAM,
- FIELDMC_STREAM, FIELDPIC_STREAM) = STREAMS
+ FIELDMC_STREAM, FIELDPIC_STREAM, H265_STREAM, *H265_COVER) = STREAMS
 
 H264_SOURCE = "m2dec_tpu_torch/csrc/h264_wavefront.cu"
 IDCT_SOURCE = "m2dec_tpu_torch/csrc/mpeg2_idct.cu"
@@ -482,6 +517,228 @@ def multi_stream(dev, smi, procs, data, kern, geom):
                      f"ms per picture step, a synchronize around each stage: "
                      + json.dumps(split))
     return launches, stacked_ms
+
+
+def h265_split(ph, plans):
+    """One run of H265SeqPhaseB ``ph`` on the plans with a synchronize
+    around every stage of Phase B; returns {stage: ms per picture}. The
+    stages: host pack (plan stacking and the level schedule), upload
+    (the pinned fill and the one host->device copy), residual, MC, the
+    luma and chroma levels, deblock, SAO, assembly (the rest of the
+    per-picture work: the inter picture, the padded planes) and the pool
+    write."""
+    import torch
+
+    from m2dec_tpu_torch.codecs.h265 import reconstruct as R
+
+    secs = {}
+
+    def timed(key, fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            secs[key] = secs.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapper
+
+    patches = [(R, "stack_plans", "host pack"), (R, "_upload", "upload"),
+               (R, "residual_plane", "residual"), (R, "inter_pass", "MC"),
+               (R, "_wavefront_luma", "luma levels"),
+               (R, "_wavefront_chroma", "chroma levels"),
+               (R, "deblock_frame", "deblock"), (R, "sao_plane", "SAO"),
+               (R, "_recon_picture", "core"),
+               (R.H265SeqPhaseB, "_store", "pool write")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, key in patches:
+        setattr(obj, name, timed(key, getattr(obj, name)))
+    try:
+        for p in plans:  # the level schedule is cached per plan
+            p.__dict__.pop("_levels", None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ph.run_async(plans)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    inner = ("residual", "MC", "luma levels", "chroma levels", "deblock",
+             "SAO")
+    secs["assembly"] = secs.pop("core") - sum(secs.get(k, 0.0)
+                                              for k in inner)
+    secs["total"] = total
+    return {k: round(1e3 * v / len(plans), 3) for k, v in secs.items()}
+
+
+def h265(dev, smi, procs):
+    """Phase 9: the H.265 main path, TurboH265Decoder on bench.py's 1080p
+    stream, then its checks (every frame against the port's CPU Phase B
+    over the same plans; four small streams against the Python decoder's
+    oracle) and its figures. Returns the seconds it took."""
+    import numpy as np
+    import torch
+
+    from m2dec_tpu_torch.codecs.h264 import wavefront_kernels as WK
+    from m2dec_tpu_torch.codecs.h265 import reconstruct as R
+    from m2dec_tpu_torch.codecs.h265.headers import H265Decoder
+    from m2dec_tpu_torch.kernels import idct_kernels as IK
+    from m2dec_tpu_torch.runtime.golden import frame_checksums
+    from m2dec_tpu_torch.runtime.turbo import TurboH265Decoder
+
+    sync = torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    data = stream(H265_STREAM, procs)
+    wait_s = time.perf_counter() - t_phase
+
+    def cks(planes):
+        return sorted(tuple(c.flatten().tolist())
+                      for c in frame_checksums(*planes).cpu())
+
+    def turbo_run():
+        """TurboH265Decoder on the stream: [(poc, crop, checksums)]."""
+        out = []
+        for frm, outs, i in TurboH265Decoder(data, batch=H265_BATCH,
+                                             device=dev).device_frames():
+            if outs is None:
+                raise RuntimeError("an H.265 frame was output without a "
+                                   "plan")
+            out.append((frm.cnt, frm.crop, frame_checksums(
+                outs[0][i:i + 1], outs[1][i:i + 1], outs[2][i:i + 1])))
+        sync()
+        return out
+
+    # the main path, with the counts of every kernel at 0 before it
+    WK.reset_launch_counts()
+    IK.reset_launch_counts()
+    t0 = time.perf_counter()
+    frames = turbo_run()
+    main_s = time.perf_counter() - t0
+    launches = {**WK.LAUNCHES, **IK.LAUNCHES}
+    if len(frames) != len(H265_PATTERN):
+        raise RuntimeError(f"H.265 main path output {len(frames)} frames, "
+                           f"want {len(H265_PATTERN)}")
+    if [f[0] for f in frames] != sorted(f[0] for f in frames):
+        raise RuntimeError("H.265 frames out of POC order")
+    phase(9, f"H.265 main path on {smi}: TurboH265Decoder {W}x{H} "
+             f"{H265_PATTERN} batch {H265_BATCH}: {len(frames)} frames in "
+             f"{main_s:.2f} s, cold (stream {len(data)} B, waited "
+             f"{wait_s:.1f} s for it); "
+             f"kernel launches {json.dumps(launches)} (H.265 reaches no "
+             f"TPU kernel: its Phase B is plain torch)")
+
+    # Phase A alone, and the plans of the checks
+    def phase_a():
+        dec = H265Decoder(device=dev)
+        dec.set_data(data)
+        dec.begin_decode(backend="native", defer_recon=True)
+        t0 = time.perf_counter()
+        while dec.decode_picture() == 1:
+            pass
+        return dec, time.perf_counter() - t0
+
+    runs = [phase_a() for _ in range(3)]
+    plans = runs[0][0].plans
+    pool = len(runs[0][0].pool)
+    pa_ms = 1e3 * statistics.median(s for _, s in runs) / len(plans)
+    def timed(fn):
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        return time.perf_counter() - t, out
+
+    ph = R.H265SeqPhaseB(plans[0].H, plans[0].W, pool, device=dev)
+    pb_s = [timed(lambda: ph.run_async(plans))[0]]  # captures the graphs
+    card_s, card = timed(lambda: ph.run_async(plans))
+    pb_s.append(card_s)
+    cpu_s, cpu = timed(lambda: R.H265SeqPhaseB(
+        plans[0].H, plans[0].W, pool, device="cpu").run_async(plans))
+    for i in range(len(plans)):
+        for pl, a, c in zip(("y", "cb", "cr"), card, cpu):
+            if not torch.equal(a[i].cpu(), c[i]):
+                raise RuntimeError(f"H.265 picture {i} {pl}: the card's "
+                                   f"Phase B != the port's CPU Phase B")
+    if cks(card) != sorted(tuple(f[2].flatten().tolist()) for f in frames):
+        raise RuntimeError("H.265 main-path frames differ from the batched "
+                           "Phase B")
+    # the small streams on the card against the Python decoder's oracle
+    cover = []
+    for name in H265_COVER:
+        s = stream(name, procs)
+        dec = H265Decoder(device="cpu")
+        dec.set_data(s)
+        exp = dec.decode_all(collect_plans=True, keep_oracle=True)
+        outs = R.replay_plans(dec.plans, device=dev)
+        for k, (p, planes) in enumerate(zip(dec.plans, outs)):
+            for pl, a, b in zip(("y", "cb", "cr"), planes, p.oracle):
+                if not np.array_equal(a, b):
+                    raise RuntimeError(f"{name}: picture {k} {pl} != the "
+                                       f"Python decoder's oracle")
+        got = TurboH265Decoder(s, batch=2, device=dev).decode_all()
+        if len(got) != len(exp):
+            raise RuntimeError(f"{name}: {len(got)} frames, want "
+                               f"{len(exp)}")
+        for k, (g, e) in enumerate(zip(got, exp)):
+            for pl in ("y", "cb", "cr"):
+                if not np.array_equal(getattr(g, pl), getattr(e, pl)):
+                    raise RuntimeError(f"{name}: frame {k} {pl} differs")
+        multi = any(p.multi_slice for p in dec.plans)
+        cover.append(f"{name} ({len(dec.plans)} pictures"
+                     f"{', multi-slice' if multi else ''})")
+    n = len(plans)
+    phase(9, f"H.265 checks: {n} pictures of the card's Phase B equal to "
+             f"the port's CPU Phase B byte for byte (the CPU of the host of "
+             f"{smi}: {1e3 * cpu_s / n:.0f} ms/picture), and the main path's "
+             f"frames to "
+             f"them by device checksum; on the card, Phase B and "
+             f"TurboH265Decoder equal to the Python decoder's oracle on "
+             + "; ".join(cover))
+
+    # figures: Phase B warm, end to end, the split, the level counts and
+    # one batch under the profiler (its raw device events: millions of
+    # them, too many to aggregate into profiler events)
+    pb_s += [timed(lambda: ph.run_async(plans))[0] for _ in range(2)]
+    pb_ms = 1e3 * statistics.median(pb_s[1:]) / n
+    e2e_ms = 1e3 * statistics.median(
+        timed(turbo_run)[0] for _ in range(3)) / len(frames)
+    phase(9, f"H.265 timing on {smi}: {W}x{H} {H265_PATTERN}, Phase A "
+             f"{pa_ms:.2f} ms/picture on the host (native, median of 3); "
+             f"Phase B {pb_ms:.1f} ms/picture (warm, median of 3 x {n}; "
+             f"the first run, which captures the CUDA graphs, "
+             f"{1e3 * pb_s[0] / n:.1f}); end to end (TurboH265Decoder batch "
+             f"{H265_BATCH}, Phase A + B, warm) {e2e_ms:.1f} ms/picture "
+             f"({1e3 / e2e_ms:.3f} fps, median of 3)")
+    split = h265_split(ph, plans)
+    phase(9, f"H.265 Phase B split on {smi}, ms per picture, a synchronize "
+             f"around each stage: " + json.dumps(split))
+    levels = [[len(m.banks[0][1]), len(m.banks[2][1])]
+              for m in (R._PicMeta(p) for p in plans)]
+    t0 = time.perf_counter()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        prof_s = timed(lambda: ph.run_async(plans))[0]
+    n_kern = n_copy = 0
+    busy_ns = 0
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            busy_ns += ev.duration_ns()
+            if ev.name().startswith(("Memcpy", "Memset")):
+                n_copy += 1
+            else:
+                n_kern += 1
+    phase(9, f"H.265 level counts per picture in decode order [luma, "
+             f"chroma]: {json.dumps(levels)}; one batch under "
+             f"torch.profiler on {smi}: {n_kern / n:.0f} CUDA kernels and "
+             f"{n_copy / n:.1f} copies/memsets per picture, "
+             f"{1e3 * prof_s / n:.1f} ms/picture of wall time, "
+             f"{busy_ns / 1e6 / n:.2f} ms/picture of device time (busy "
+             f"share {busy_ns / 1e9 / prof_s:.4f}); profiling and reading "
+             f"the events took {time.perf_counter() - t0:.1f} s")
+    took = time.perf_counter() - t_phase
+    phase(9, f"H.265 phase took {took:.1f} s on {smi}")
+    return took
 
 
 def main():
@@ -967,6 +1224,9 @@ def run(dev, procs, t_start):
     # -- phase 8: H.264 on 4 and 8 streams (MultiStreamPhaseB) -----------
     multi_launches, stacked_ms = multi_stream(dev, smi, procs, data, kern,
                                               geom)
+
+    # -- phase 9: H.265 (TurboH265Decoder, plain torch Phase B) ----------
+    h265(dev, smi, procs)
 
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "m2dec_tpu"))

@@ -1,15 +1,16 @@
 """m2dec_tpu_torch — the PyTorch/CUDA port of m2dec_tpu.
 
-It decodes H.264 and MPEG-1/2 in two phases, like the JAX package.
-Phase A (entropy decode into plans) is host code with no framework: the
-port keeps its own copies of the JAX package's host layer
-(``bitstream``, the codecs' headers, decoders and plan producers, and
-the native C++ Phase A under ``native/``). Phase B (reconstruction)
+It decodes H.264, H.265 and MPEG-1/2 in two phases, like the JAX
+package. Phase A (entropy decode into plans) is host code with no
+framework: the port keeps its own copies of the JAX package's host
+layer (``bitstream``, the codecs' headers, decoders and plan producers,
+and the native C++ Phase A under ``native/``). Phase B (reconstruction)
 runs on torch tensors. On a CUDA device the H.264 intra and deblocking
 wavefronts (``csrc/h264_wavefront.cu``) and the MPEG-2 8x8 IDCT
 (``csrc/mpeg2_idct.cu``) run as hand-written kernels for sm_90a, built
 with nvcc at first use; on CPU tensors the same functions run their
-plain PyTorch versions.
+plain PyTorch versions. H.265's Phase B is plain torch ops (the JAX
+package has no Pallas kernel for it).
 
 This package imports neither jax nor any module of ``m2dec_tpu``.
 """

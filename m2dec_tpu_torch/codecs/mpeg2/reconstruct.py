@@ -140,8 +140,8 @@ def _host_arrays(plans, has_field):
     return out
 
 
-_TORCH_DT = {np.dtype(np.uint8): U8, np.dtype(np.int16): torch.int16,
-             np.dtype(np.int32): I32}
+_TORCH_DT = {np.dtype(np.uint8): U8, np.dtype(np.int8): torch.int8,
+             np.dtype(np.int16): torch.int16, np.dtype(np.int32): I32}
 
 
 def _upload(fields, device):

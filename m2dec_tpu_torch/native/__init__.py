@@ -1,6 +1,8 @@
-"""Native (C++) Phase-A front ends of the port: the H.264 slice decoder
-and wire packer (``h264parse.cpp``) and the MPEG-1/2 picture decoder
-(``m2vparse.cpp``), with their generated tables (``*.inc``) beside them.
+"""Native (C++) host code of the port: the H.264 slice decoder and wire
+packer (``h264parse.cpp``), the MPEG-1/2 picture decoder
+(``m2vparse.cpp``) and the H.265 slice decoder (``h265parse.cpp``), with
+their generated tables (``*.inc``) beside them, and the H.265 intra-op
+level scheduler (``oplevel.cpp``).
 
 Each library is compiled with g++ at first use into
 ``build/torch_native/<key>/``, where the key hashes the sources, the
@@ -26,9 +28,11 @@ _HERE = pathlib.Path(__file__).resolve().parent
 BUILD_ROOT = _HERE.parent.parent / "build" / "torch_native"
 CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 
-#: library name -> (source, the table file it includes)
+#: library name -> (source, the table files it includes)
 SOURCES = {"h264parse": ("h264parse.cpp", "h264_tables.inc"),
-           "m2vparse": ("m2vparse.cpp", "mpeg2_tables.inc")}
+           "m2vparse": ("m2vparse.cpp", "mpeg2_tables.inc"),
+           "h265parse": ("h265parse.cpp", "h265_tables.inc"),
+           "oplevel": ("oplevel.cpp",)}
 
 _LOCK = threading.Lock()
 _LIBS: dict = {}
@@ -181,3 +185,82 @@ def _declare_h264(lib):
 def load_h264():
     """The H.264 Phase-A library (built at first use)."""
     return _load("h264parse", _declare_h264)
+
+
+# ---------------------------------------------------------------- H.265 --
+
+class H265SliceParams(ctypes.Structure):
+    """Mirror of h265parse.cpp's H265SliceParams (field order must
+    match)."""
+
+    _fields_ = [
+        ("slice_type", ctypes.c_int32),
+        ("slice_qpy", ctypes.c_int32),
+        ("cabac_init_flag", ctypes.c_int32),
+        ("sao_luma", ctypes.c_int32),
+        ("sao_chroma", ctypes.c_int32),
+        ("slice_addr", ctypes.c_int32),
+        ("max_merge", ctypes.c_int32),
+        ("mvd_l1_zero", ctypes.c_int32),
+        ("temporal_mvp", ctypes.c_int32),
+        ("colocated_from_l0", ctypes.c_int32),
+        ("collocated_ref_idx", ctypes.c_int32),
+        ("num_ref_idx_minus1", ctypes.c_int32 * 2),
+        ("deblock_disabled", ctypes.c_int32),
+        ("beta_offset_div2", ctypes.c_int32),
+        ("tc_offset_div2", ctypes.c_int32),
+        ("qpc_delta", ctypes.c_int32 * 2),
+        ("sign_data_hiding", ctypes.c_int32),
+        ("transform_skip", ctypes.c_int32),
+        ("cu_qp_delta", ctypes.c_int32),
+        ("max_hier_intra", ctypes.c_int32),
+        ("max_hier_inter", ctypes.c_int32),
+        ("amp", ctypes.c_int32),
+        ("log2_parallel_merge", ctypes.c_int32),
+        ("min_cb_log2", ctypes.c_int32),
+        ("max_tb_log2", ctypes.c_int32),
+        ("min_tb_log2", ctypes.c_int32),
+        ("bit_offset", ctypes.c_int64),
+        ("ref_poc", ctypes.c_int32 * 32),
+        ("ref_fidx", ctypes.c_int32 * 32),
+        ("col_page", ctypes.c_int32),
+        ("lowdelay", ctypes.c_int32),
+        ("colmv", ctypes.c_int32 * 64),
+        ("tmv", ctypes.c_int32 * 64),
+        ("fidx_curr", ctypes.c_int32 * 32),
+        ("fidx_col", ctypes.c_int32 * 32),
+        ("cb_qp_offset", ctypes.c_int32),
+        ("cr_qp_offset", ctypes.c_int32),
+    ]
+
+
+def _declare_h265(lib):
+    vp = ctypes.c_void_p
+    lib.h265p_new.restype = vp
+    lib.h265p_new.argtypes = [ctypes.c_int] * 5
+    lib.h265p_free.argtypes = [vp]
+    lib.h265p_begin_picture.argtypes = [
+        vp, ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int]
+    lib.h265p_slice.restype = ctypes.c_int
+    lib.h265p_slice.argtypes = [vp, ctypes.c_char_p, ctypes.c_longlong,
+                                ctypes.POINTER(H265SliceParams)]
+    lib.h265p_finish.argtypes = [vp] * 4
+
+
+def load_h265():
+    """The H.265 Phase-A library (built at first use)."""
+    return _load("h265parse", _declare_h265)
+
+
+def _declare_oplevel(lib):
+    fn = lib.h265_schedule_levels
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
+                   ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+                   ctypes.c_int32, ctypes.c_void_p]
+
+
+def load_oplevel():
+    """The H.265 intra-op level scheduler (built at first use)."""
+    return _load("oplevel", _declare_oplevel)

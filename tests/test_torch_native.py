@@ -1,7 +1,7 @@
 """The port's own copy of the native C++ Phase A (m2dec_tpu_torch.native):
-table files byte-identical to the JAX package's, plans equal to the JAX
-package's native plans key by key, concurrent first loads that all
-succeed, and a failed build that raises."""
+table files (and the H.265 sources) byte-identical to the JAX package's,
+plans equal to the JAX package's native plans key by key, concurrent
+first loads that all succeed, and a failed build that raises."""
 
 import dataclasses
 import pathlib
@@ -16,14 +16,19 @@ import torch_helpers  # noqa: F401  (pins torch to one thread)
 sys.path.insert(0, str(pathlib.Path(__file__).parent))
 
 from streamgen.h264_enc import H264BGen, H264HighGen  # noqa: E402
+from streamgen.h265_enc import ALL_MODES, H265StreamGen  # noqa: E402
 from streamgen.mpeg2_enc import Mpeg2FieldMcGen, Mpeg2StreamGen  # noqa: E402
 
 import m2dec_tpu.native as JN  # noqa: E402
 from m2dec_tpu.codecs.h264.decoder import H264Decoder  # noqa: E402
+from m2dec_tpu.codecs.h265.headers import H265Decoder  # noqa: E402
 from m2dec_tpu.codecs.mpeg2.decoder import Mpeg2Decoder  # noqa: E402
 import m2dec_tpu_torch.native as PN  # noqa: E402
 from m2dec_tpu_torch.codecs.h264.decoder import (  # noqa: E402
     H264Decoder as PortH264Decoder,
+)
+from m2dec_tpu_torch.codecs.h265.headers import (  # noqa: E402
+    H265Decoder as PortH265Decoder,
 )
 from m2dec_tpu_torch.codecs.mpeg2.decoder import (  # noqa: E402
     Mpeg2Decoder as PortMpeg2Decoder,
@@ -32,7 +37,9 @@ from m2dec_tpu_torch.codecs.mpeg2.decoder import (  # noqa: E402
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 
-@pytest.mark.parametrize("name", ["h264_tables.inc", "mpeg2_tables.inc"])
+@pytest.mark.parametrize("name", ["h264_tables.inc", "mpeg2_tables.inc",
+                                  "h265_tables.inc", "h265parse.cpp",
+                                  "oplevel.cpp"])
 def test_native_tables_identical(name):
     port = (REPO / "m2dec_tpu_torch" / "native" / name).read_bytes()
     assert port == (REPO / "m2dec_tpu" / "native" / name).read_bytes()
@@ -77,6 +84,53 @@ def test_native_h264_plans_equal(name):
                 for mb in b:
                     for x, y in zip(a[mb], b[mb]):
                         assert np.array_equal(x, y), f"picture {k} pcm"
+            else:
+                assert a == b, f"picture {k} {key}"
+
+
+def _h265_plans(cls, data):
+    dec = cls()
+    dec.set_data(data)
+    dec.begin_decode(backend="native", defer_recon=True)
+    while dec.decode_picture() == 1:
+        pass
+    return dec.plans
+
+
+H265_STREAMS = {
+    "b_64x48": lambda: H265StreamGen(
+        64, 48, seed=82, qp=32, cbf_prob=0.4, modes=ALL_MODES, tmvp=1,
+        deblock=1, sao=1, max_level=1).generate("IPBPB"),
+    "ctb32_96x64": lambda: H265StreamGen(
+        96, 64, seed=72, qp=14, ctb_log2=5, cbf_prob=0.3, modes=ALL_MODES,
+        tmvp=1, amvp_prob=1.0, skip_prob=0.0, max_mvd=300,
+        strong_smoothing=1).generate("IPP"),
+    "tskip_sdh_64x48": lambda: H265StreamGen(
+        64, 48, seed=32, qp=14, cbf_prob=0.7, modes=ALL_MODES,
+        transform_skip=1, sign_data_hiding=1, split_prob=0.7,
+        nxn_prob=0.8).generate(2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(H265_STREAMS))
+def test_native_h265_plans_equal(name):
+    """The port's native H.265 Phase A (defer mode, as TurboH265Decoder
+    runs it) fills the JAX package's plans field by field, so both Phase
+    Bs consume equal plans."""
+    if JN.load_h265() is None:
+        pytest.skip("the JAX package's native library did not load in "
+                    "this process (its concurrent-build race, ROADMAP)")
+    data = H265_STREAMS[name]()
+    want = _h265_plans(H265Decoder, data)
+    got = _h265_plans(PortH265Decoder, data)
+    assert len(got) == len(want) > 0
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert vars(g).keys() == vars(w).keys()
+        for key, b in vars(w).items():
+            a = getattr(g, key)
+            if isinstance(b, np.ndarray):
+                assert a.dtype == b.dtype and np.array_equal(a, b), \
+                    f"picture {k} {key}"
             else:
                 assert a == b, f"picture {k} {key}"
 

@@ -22,6 +22,7 @@ from streamgen.h264_enc import (  # noqa: E402
     H264HighGen,
     H264MmcoGen,
 )
+from streamgen.h265_enc import ALL_MODES, H265StreamGen  # noqa: E402
 from streamgen.mpeg2_enc import Mpeg2StreamGen  # noqa: E402
 
 from m2dec_tpu.codecs.h264.decoder import H264Decoder  # noqa: E402
@@ -139,12 +140,17 @@ def test_torch_port_never_imports_jax(tmp_path):
     """In a fresh interpreter (the test process itself has jax loaded by
     conftest), the port imports every one of its modules and decodes a
     48x32 H.264 stream (TurboH264Decoder, and twice side by side through
-    MultiStreamPhaseB) and an 80x48 MPEG-2 stream; neither jax nor any
-    module of m2dec_tpu is loaded."""
+    MultiStreamPhaseB), an 80x48 MPEG-2 stream and a 64x48 H.265 stream
+    (TurboH265Decoder); neither jax nor any module of m2dec_tpu is
+    loaded."""
     h264 = tmp_path / "s.264"
     h264.write_bytes(_b_stream())
     m2v = tmp_path / "s.m2v"
     m2v.write_bytes(Mpeg2StreamGen(80, 48, seed=11).generate("IPPBPBB"))
+    h265 = tmp_path / "s.265"
+    h265.write_bytes(H265StreamGen(
+        64, 48, seed=82, qp=32, cbf_prob=0.4, modes=ALL_MODES, tmvp=1,
+        deblock=1, sao=1, max_level=1).generate("IPBPB"))
     code = (
         "import importlib, pkgutil, sys\n"
         "import numpy as np\n"
@@ -175,6 +181,13 @@ def test_torch_port_never_imports_jax(tmp_path):
         ".decode_all()\n"
         "assert len(frames) == 6, len(frames)\n"
         "assert all(np.asarray(f.y).shape == (48, 80) for f in frames)\n"
+        "from m2dec_tpu_torch.runtime.turbo import TurboH265Decoder\n"
+        f"data = open({str(h265)!r}, 'rb').read()\n"
+        "frames = TurboH265Decoder(data, batch=2, device='cpu')"
+        ".decode_all()\n"
+        "assert len(frames) == 5, len(frames)\n"
+        "assert [f.cnt for f in frames] == [0, 1, 2, 3, 4], frames\n"
+        "assert all(f.y.shape == (48, 64) and f.y.any() for f in frames)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m == 'm2dec_tpu'\n"
         "       or m.startswith(('jax.', 'm2dec_tpu.'))]\n"
         "assert not bad, bad\n"
