@@ -741,6 +741,201 @@ def h265(dev, smi, procs):
     return took
 
 
+def make_ps(m2v_name):
+    """An MPEG program stream wrap of cached stream ``m2v_name``, made
+    by tests/streamgen/ps_mux.py in a child process and cached beside
+    it; returns its path. Video PES packets of 2048 bytes (a 1080p
+    picture passes the 16-bit PES length)."""
+    src = CACHE / m2v_name
+    out = src.with_suffix(".mpg")
+    if not out.is_file():
+        tmp = str(out) + ".tmp"
+        code = (f"import os, sys\nsys.path.insert(0, "
+                f"{str(REPO / 'tests')!r})\n"
+                f"from streamgen.ps_mux import mux_ps\n"
+                f"data = open({str(src)!r}, 'rb').read()\n"
+                f"open({tmp!r}, 'wb').write(mux_ps(data, packet_size=2048))\n"
+                f"os.replace({tmp!r}, {str(out)!r})\n")
+        subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                       capture_output=True, timeout=300)
+    return out
+
+
+def entry_points(dev, smi, procs, data, m2data, h264_cks, m2_cks):
+    """Phase 10: the port's command-line tools on the card, in-process
+    through their main([...]) in a temporary directory: h264dec --turbo
+    -O, -C and the flag-less -O (the default path: the per-picture
+    native Phase A and torch Phase B, the JAX tool's --jax) on the 1080p
+    H.264 stream; m2dec -O and h264dec -s -O on a program-stream wrap of
+    the 1080p MPEG-2 stream; m2dec --fast -o on the MPEG-2 stream;
+    thrplay -m, with and without --turbo, on a playlist of both and a
+    small H.265 stream. Each output is held to frames verified before:
+    the Turbo drivers' frames of phases 2 and 5 (their device checksums
+    equal to those phases', in output order), the port's CPU fast path,
+    and the Python H.265 decoder's frames. Every Pipeline of a thrplay
+    run must finish with no serial replay (its ``replays`` counter), so
+    the H.265 leg, which has no kernel to count, ran through the Turbo
+    driver or the serial decoder it was given, on the card.
+    Returns ({kernel: {run: launches}}, seconds)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from m2dec_tpu_torch.apps import h264dec, m2dec, thrplay
+    from m2dec_tpu_torch.codecs.h264 import wavefront_kernels as WK
+    from m2dec_tpu_torch.codecs.h265.headers import H265Decoder
+    from m2dec_tpu_torch.codecs.mpeg2.decoder import Mpeg2Decoder
+    from m2dec_tpu_torch.kernels import idct_kernels as IK
+    from m2dec_tpu_torch.runtime.golden import host_checksum, host_cks_file
+    from m2dec_tpu_torch.runtime.output import (
+        cropped_nv12_bytes,
+        frame_md5_line,
+    )
+    from m2dec_tpu_torch.runtime.pipeline import Pipeline
+    from m2dec_tpu_torch.runtime.turbo import (
+        TurboH264Decoder,
+        TurboMpeg2Decoder,
+    )
+
+    t_phase = time.perf_counter()
+
+    def verified(cls, stream, want, name):
+        """The Turbo driver's host frames of ``stream``, each held to the
+        device checksum of the same frame of an earlier phase."""
+        frames = list(cls(stream, batch=BATCH, device=dev).frames())
+        if len(frames) != len(want):
+            raise RuntimeError(f"{name}: {len(frames)} frames, want "
+                               f"{len(want)}")
+        for k, (f, c) in enumerate(zip(frames, want)):
+            if not np.array_equal(host_checksum(f.y, f.cb, f.cr),
+                                  c[0].cpu().numpy()):
+                raise RuntimeError(f"{name}: frame {k} differs from the "
+                                   f"verified run")
+        return frames
+
+    h264_frames = verified(TurboH264Decoder, data, h264_cks, "H.264")
+    m2_frames = verified(TurboMpeg2Decoder, m2data, m2_cks, "MPEG-2")
+    h264_md5 = b"".join(frame_md5_line(f) for f in h264_frames)
+    m2_md5 = b"".join(frame_md5_line(f) for f in m2_frames)
+    f0 = h264_frames[0]
+    h264_cks_text = host_cks_file(
+        b"".join(cropped_nv12_bytes(f) for f in h264_frames),
+        f0.width - f0.crop[0] - f0.crop[1],
+        f0.height - f0.crop[2] - f0.crop[3])
+    fast = Mpeg2Decoder(fast=True, device="cpu")
+    fast.set_data(m2data)
+    fast_raw = b"".join(cropped_nv12_bytes(f) for f in fast.decode_all())
+    h265_name = H265_COVER[2]
+    h265_data = stream(h265_name, procs)
+    oracle = H265Decoder()
+    oracle.set_data(h265_data)
+    h265_md5 = b"".join(frame_md5_line(f) for f in oracle.decode_all())
+    ps_path = make_ps(M2V_STREAM)
+
+    kernels = (*ROW_KERNELS, "idct8x8")
+    cli_launches = {k: {} for k in kernels}
+    pipes = []  # (codec, replays) of each Pipeline run of a tool run
+    pipeline_run = Pipeline.run
+
+    def counted_run(self, sink):
+        n = pipeline_run(self, sink)
+        pipes.append((self.codec, self.metrics.count("replays")))
+        return n
+
+    Pipeline.run = counted_run
+    with tempfile.TemporaryDirectory() as td:
+        td = pathlib.Path(td)
+        (td / "h264.264").write_bytes(data)
+        (td / "m2v.m2v").write_bytes(m2data)
+        (td / "m2v.mpg").write_bytes(ps_path.read_bytes())
+        (td / "h265.265").write_bytes(h265_data)
+        cwd = os.getcwd()
+        os.chdir(td)
+        try:
+            def run(tool, argv, outputs, n_frames, want_launches,
+                    want_pipes=()):
+                """One tool run with the counts at 0 before it: checks
+                its exit code, each output file against its expected
+                bytes, the launches of each kernel and the (codec,
+                replays) of each Pipeline; prints its line."""
+                name = f"{tool.__name__.rsplit('.', 1)[-1]} {' '.join(argv)}"
+                for p in outputs:
+                    (td / p).unlink(missing_ok=True)
+                WK.reset_launch_counts()
+                IK.reset_launch_counts()
+                pipes.clear()
+                err = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stderr(err):
+                    code = tool.main(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                got = {**WK.LAUNCHES, **IK.LAUNCHES}
+                if code != 0:
+                    raise RuntimeError(f"{name}: exit {code}: "
+                                       f"{err.getvalue()}")
+                for p, want in outputs.items():
+                    if (td / p).read_bytes() != want:
+                        raise RuntimeError(f"{name}: {p} differs from the "
+                                           f"verified frames")
+                bad = {k: got[k] for k in kernels
+                       if (got[k] != want_launches.get(k, 0))}
+                if bad:
+                    raise RuntimeError(f"{name}: launches {bad}, want "
+                                       f"{want_launches}")
+                if pipes != list(want_pipes):
+                    raise RuntimeError(f"{name}: pipelines (codec, "
+                                       f"replays) {pipes}, want "
+                                       f"{list(want_pipes)}")
+                for k in kernels:
+                    cli_launches[k][name] = got[k]
+                phase(10, f"{name}: {n_frames} frames in {wall:.3f} s "
+                          f"({n_frames / wall:.2f} fps, wall clock, cold "
+                          f"tool run, outputs equal to the verified "
+                          f"frames); launches "
+                          f"{json.dumps({k: got[k] for k in kernels})}; "
+                          f"pipelines (codec, replays) {pipes}; {smi}")
+
+            n264, nm2 = len(h264_frames), len(m2_frames)
+            per_pic = {k: n264 for k in ROW_KERNELS}
+            run(h264dec, ["--turbo", "-O", "h264.264"],
+                {"h264.out": h264_md5}, n264, per_pic)
+            run(h264dec, ["-C", "h264.264"],
+                {"h264.out": h264_cks_text.encode()}, n264, per_pic)
+            # the default path: native Phase A, torch Phase B per picture
+            run(h264dec, ["-O", "h264.264"],
+                {"h264.out": h264_md5}, n264, per_pic)
+            # the serial MPEG-2 decoder: one IDCT launch per picture
+            run(m2dec, ["-O", "m2v.md5", "m2v.mpg"], {"m2v.md5": m2_md5},
+                nm2, {"idct8x8": nm2})
+            run(h264dec, ["-s", "-O", "m2v.mpg"], {"m2v.out": m2_md5}, nm2,
+                {"idct8x8": nm2})
+            run(m2dec, ["--fast", "-o", "fast.raw", "m2v.m2v"],
+                {"fast.raw": fast_raw}, nm2, {})
+            # the Turbo drivers, no serial replay: the H.264 passes once
+            # per picture, the IDCT once per batch of the MPEG-2 stream
+            playlist = {"h264.out": h264_md5, "m2v.out": m2_md5,
+                        "h265.out": h265_md5}
+            n_list = n264 + nm2 + h265_md5.count(b"\r\n")
+            no_replay = [("h264", 0), ("mpeg2", 0), ("h265", 0)]
+            run(thrplay, ["--turbo", "-m", "h264.264", "m2v.mpg",
+                          "h265.265"], playlist, n_list,
+                {**per_pic, "idct8x8": -(-nm2 // BATCH)}, no_replay)
+            # the Pipeline's serial decoders on the card: the H.264
+            # passes and the IDCT once per picture
+            run(thrplay, ["-m", "h264.264", "m2v.mpg", "h265.265"],
+                playlist, n_list, {**per_pic, "idct8x8": nm2}, no_replay)
+        finally:
+            os.chdir(cwd)
+            Pipeline.run = pipeline_run
+    took = time.perf_counter() - t_phase
+    phase(10, f"entry points took {took:.1f} s on {smi}")
+    return cli_launches, took
+
+
 def main():
     import torch
 
@@ -1228,6 +1423,10 @@ def run(dev, procs, t_start):
     # -- phase 9: H.265 (TurboH265Decoder, plain torch Phase B) ----------
     h265(dev, smi, procs)
 
+    # -- phase 10: the command-line tools on the card --------------------
+    cli_launches, _ = entry_points(dev, smi, procs, data, m2data, turbo,
+                                   m2_turbo)
+
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "m2dec_tpu"))
     if bad:
@@ -1242,7 +1441,8 @@ def run(dev, procs, t_start):
          "dependency_ms": bounds[k][2], "inter_ms": inter_ms[k],
          "multistream_launches": {S: v.get(k, 0)
                                   for S, v in multi_launches.items()},
-         "stacked4_ms": stacked_ms.get(k)}
+         "stacked4_ms": stacked_ms.get(k),
+         "cli_launches": cli_launches[k]}
         for k in REPLACES]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

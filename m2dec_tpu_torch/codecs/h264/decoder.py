@@ -131,13 +131,25 @@ class H264Decoder:
     """H.264 Annex-B elementary stream decoder (CAVLC I slices onward)."""
 
     def __init__(self, num_frames=None, dpb_max=-1, record_plans=False,
-                 native=False, plan_alloc="zeros"):
+                 native=False, phase_b=None, plan_alloc="zeros",
+                 device=None):
         """native=True: per-MB slice decode runs in C++ (Phase A), plans
-        collected without reconstruction (Phase B reconstructs them:
-        runtime/turbo.py, or recon_ref.reconstruct_plan_np).
+        collected without Python reconstruction. phase_b (native only):
+        None (plans only; runtime/turbo.py reconstructs them), "torch"
+        to reconstruct each picture from its plan on ``device``
+        (reconstruct.reconstruct_plan_torch; default: the CUDA device,
+        resolved here, so a missing card raises now).
         plan_alloc="empty" (native only) skips plan zero-initialization
         (C-side clear + coded-map gating; see NativeH264Session)."""
+        if phase_b not in (None, "torch"):
+            raise ValueError(f"phase_b={phase_b!r}: None or 'torch'")
         self.native = native
+        self.phase_b = phase_b
+        if phase_b == "torch":
+            from ...device import resolve_device
+
+            device = resolve_device(device)
+        self.device = device
         self.plan_alloc = plan_alloc if native else "zeros"
         self.native_session = None
         if native:
@@ -1360,6 +1372,10 @@ class H264Decoder:
         if self.native:
             plan = self.native_session.finish_picture(self)
             self.plans.append(plan)
+            if self.phase_b == "torch":
+                from .reconstruct import reconstruct_plan_torch
+
+                reconstruct_plan_torch(plan, self.frames, self.device)
         else:
             if self.rec is not None:
                 self.rec.plan.poc = hdr.poc

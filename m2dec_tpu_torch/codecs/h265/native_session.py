@@ -16,6 +16,7 @@ import numpy as np
 
 from m2dec_tpu_torch.codecs.h265.colpics import _scale
 from m2dec_tpu_torch.codecs.h265.plan import H265Plan
+from m2dec_tpu_torch.errors import StreamFeatureExcluded
 from m2dec_tpu_torch.native import H265SliceParams, load_h265
 
 _VOIDP = ctypes.c_void_p
@@ -151,7 +152,7 @@ class NativeH265Session:
 
             raise BitstreamExhausted("native slice truncated")
         if err < 0:
-            raise NotImplementedError(
+            raise StreamFeatureExcluded(
                 _ERRORS.get(err, f"native h265 slice error {err}"))
         self.plan.has_sao = bool(sp.sao_luma or sp.sao_chroma)
 

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ...device import resolve_device
+from ...errors import StreamFeatureExcluded
 from ...native import load_oplevel
 from ..mpeg2.reconstruct import _upload
 from . import residual as _RES
@@ -1511,7 +1512,7 @@ def _slices_of(plan):
     segments, or None for a one-slice picture; mid-row starts raise."""
     multi = plan.multi_slice and len(plan.slice_rows) > 1
     if plan.multi_slice and (not plan.slice_aligned or not multi):
-        raise NotImplementedError(
+        raise StreamFeatureExcluded(
             "mid-row slice-segment starts keep the Python path "
             "(reference chroma-base domain)")
     if not multi:

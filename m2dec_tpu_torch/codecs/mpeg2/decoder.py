@@ -20,6 +20,7 @@ import numpy as np
 
 from m2dec_tpu_torch.bitstream import BitReader
 from m2dec_tpu_torch.bitstream.reader import find_start_codes
+from m2dec_tpu_torch.errors import StreamFeatureExcluded
 from . import tables as T
 from .entropy import (
     B_VOP,
@@ -61,11 +62,12 @@ class DecodedFrame:
         return np.asarray(self.y), chroma
 
 
-def _blank_frame(mb_w, mb_h):
+def _blank_frame(mb_w, mb_h, fast=False):
+    ly, lc = (2, 1) if fast else (16, 8)
     return {
-        "y": np.zeros((mb_h * 16, mb_w * 16), np.uint8),
-        "cb": np.zeros((mb_h * 8, mb_w * 8), np.uint8),
-        "cr": np.zeros((mb_h * 8, mb_w * 8), np.uint8),
+        "y": np.zeros((mb_h * ly, mb_w * ly), np.uint8),
+        "cb": np.zeros((mb_h * lc, mb_w * lc), np.uint8),
+        "cr": np.zeros((mb_h * lc, mb_w * lc), np.uint8),
         "cnt": 0,
     }
 
@@ -73,9 +75,9 @@ def _blank_frame(mb_w, mb_h):
 class FramePool:
     """LRU frame pool + reference rotation (mpeg2.cpp:130-194)."""
 
-    def __init__(self, num, mb_w, mb_h):
+    def __init__(self, num, mb_w, mb_h, fast=False):
         self.num = num
-        self.frames = [_blank_frame(mb_w, mb_h) for _ in range(num)]
+        self.frames = [_blank_frame(mb_w, mb_h, fast) for _ in range(num)]
         self.lru = [0] * num
         self.idx_of_ref = [0, 0]
         self.index = -1
@@ -102,11 +104,10 @@ class Mpeg2Decoder:
     def __init__(self, device=None, num_frames=4, fast=False,
                  defer_recon=False):
         """device: where Phase B runs (default: the CUDA device; CPU
-        callers pass "cpu"). fast=True, the DC-only 1/8-scale decode of
-        the JAX package (FAST_DECODE), is not ported."""
-        if fast:
-            raise NotImplementedError(
-                "fast=True (DC-only 1/8-scale decode) is not ported")
+        callers pass "cpu"). fast=True: the DC-only 1/8-scale Phase B of
+        the reference's FAST_DECODE mode (codecs/mpeg2/fast.py)."""
+        #: FAST_DECODE analog: DC-only 1/8-scale Phase B
+        self.fast = fast
         #: defer mode (runtime/turbo.TurboMpeg2Decoder): Phase A only —
         #: plans + (cur, ref0, ref1) slot triples accumulate in
         #: self.plans and DPB-style output events surface as pool
@@ -203,7 +204,8 @@ class Mpeg2Decoder:
         seq.qmat = tuple(qmats)
         seq.set_size(w, h)
         if self.pool is None:
-            self.pool = FramePool(self.num_frames, seq.mb_w, seq.mb_h)
+            self.pool = FramePool(self.num_frames, seq.mb_w, seq.mb_h,
+                                  self.fast)
 
     def _read_extension(self, r):
         ext_id = r.get_bits(4)
@@ -391,13 +393,21 @@ class Mpeg2Decoder:
                 "not bit-reproducible in the plan-based decoder"
             )
         if self.defer_recon:
+            if self.fast:
+                raise StreamFeatureExcluded("defer_recon: full decode only")
             self.plans.append((plan, pool.index, pool.idx_of_ref[0],
                                pool.idx_of_ref[1]))
             self.ent = None
             return
         ref0 = pool.frames[pool.idx_of_ref[0]]
         ref1 = pool.frames[pool.idx_of_ref[1]]
-        out = reconstruct_picture(plan, ref0, ref1, device=self.device)
+        if self.fast:
+            from .fast import reconstruct_picture_fast
+
+            out = reconstruct_picture_fast(plan, ref0, ref1,
+                                           device=self.device)
+        else:
+            out = reconstruct_picture(plan, ref0, ref1, device=self.device)
         cur = pool.frames[pool.index]
         cur["y"], cur["cb"], cur["cr"] = out["y"], out["cb"], out["cr"]
         self.ent = None
@@ -406,6 +416,15 @@ class Mpeg2Decoder:
     def _frame_out(self, idx):
         f = self.pool.frames[idx]
         seq = self.seq
+        if self.fast:
+            # fast mode reports the full coarse frame, no sub-MB crop
+            # (mpeg2.cpp:309-310 with MB_LEN=2)
+            pw, ph = seq.mb_w * 2, seq.mb_h * 2
+            return DecodedFrame(
+                y=f["y"], cb=f["cb"], cr=f["cr"],
+                width=pw, height=ph, crop=(0, 0, 0, 0), cnt=f["cnt"],
+                raw_stride=(pw + 15) & ~15,
+            )
         pw, ph = seq.mb_w * 16, seq.mb_h * 16
         return DecodedFrame(
             y=f["y"], cb=f["cb"], cr=f["cr"],

@@ -14,12 +14,40 @@ computed on the device in int64, so only two numbers leave it.
 stack as one unit, as the JAX ``MultiStreamPhaseB.checksums`` does, and
 ``host_checksum`` is the numpy copy of the JAX package's
 ``host_checksum`` that both are held to.
+
+The golden mode of the ``h264dec -C`` tool writes one line per output
+frame, ``<frame#>: <sum:08x> <wsum:08x>``, through ``CksWriter``: the
+checksum is taken where the frame lies, so a frame on the card sends 8
+bytes to the host. ``host_cks_file`` gives the same text for a raw NV12
+dump (the ``-o`` output), ``host_frame_cks`` one frame's checksum.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def host_frame_cks(frame_bytes: bytes | np.ndarray) -> tuple[int, int]:
+    """Checksum of one cropped NV12 frame byte string (host)."""
+    b = np.frombuffer(frame_bytes, np.uint8) \
+        if isinstance(frame_bytes, (bytes, bytearray)) \
+        else np.ascontiguousarray(frame_bytes).reshape(-1)
+    v = b.astype(np.uint64)
+    w = (np.arange(v.size, dtype=np.uint64) % 8191) + 1
+    return (int(v.sum() & 0xFFFFFFFF),
+            int((v * w).sum() & 0xFFFFFFFF))
+
+
+def host_cks_file(raw: bytes, width: int, height: int) -> str:
+    """The .cks text for a raw NV12 dump (frame-size = w*h*3/2)."""
+    fs = width * height * 3 // 2
+    n = len(raw) // fs
+    lines = []
+    for i in range(n):
+        s, ws = host_frame_cks(raw[i * fs : (i + 1) * fs])
+        lines.append(f"{i}: {s:08x} {ws:08x}")
+    return "\n".join(lines) + ("\n" if lines else "")
 
 
 def device_frame_cks(y, cb, cr, crop) -> tuple[int, int]:
@@ -71,3 +99,25 @@ def host_checksum(y, cb, cr):
         out[i, 0] = flat.sum() & 0xFFFFFFFF
         out[i, 1] = (flat * w % (1 << 32)).sum() & 0xFFFFFFFF
     return out.astype(np.int64).astype(np.uint32).view(np.int32)
+
+
+class CksWriter:
+    """The golden-mode writer (the FileWriterMd5 analog for frames kept
+    on the device): one checksum line per output frame."""
+
+    def __init__(self, path):
+        self.f = open(path, "w")
+        self.n = 0
+
+    def _line(self, s, ws):
+        self.f.write(f"{self.n}: {s:08x} {ws:08x}\n")
+        self.n += 1
+
+    def write_device_frame(self, y, cb, cr, crop):
+        self._line(*device_frame_cks(y, cb, cr, crop))
+
+    def write_host_frame(self, frame_bytes):
+        self._line(*host_frame_cks(frame_bytes))
+
+    def close(self):
+        self.f.close()

@@ -150,7 +150,8 @@ class TurboH265Decoder:
 
     Row-aligned multi-slice pictures dispatch one at a time against the
     same device pool (their per-segment deblock + SAO replay); mid-row
-    slice starts raise NotImplementedError, as in the JAX driver: they
+    slice starts raise StreamFeatureExcluded, as the JAX driver raises
+    NotImplementedError: they
     keep the serial Python path (a reference-bug domain, the chroma base
     derived as luma_offset >> 1). batch: pictures per device dispatch.
     device: where Phase B runs (default: the CUDA device; raises when

@@ -433,3 +433,30 @@ def test_mpeg2_batch_kernel_vs_plain(cuda):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_h264dec_turbo_cli_on_card(cuda, tmp_path, monkeypatch):
+    """h264dec --turbo -O, and the flag-less -O (the per-picture native
+    Phase A and torch Phase B), on the card by default: the MD5 lines of
+    the port's CPU run of the tool, and one launch of each wavefront
+    kernel per picture."""
+    from streamgen.h264_enc import H264BGen
+
+    from m2dec_tpu_torch.apps import h264dec
+
+    (tmp_path / "b.264").write_bytes(H264BGen(
+        176, 144, seed=5, num_ref_frames=2,
+        disable_deblock=False).generate("IPBPBP"))
+    monkeypatch.chdir(tmp_path)
+    assert h264dec.main(["--turbo", "-O", "--device", "cpu", "b.264"]) == 0
+    want = (tmp_path / "b.out").read_bytes()
+    assert want.count(b"\r\n") == 6
+    for flags in (["--turbo"], []):
+        (tmp_path / "b.out").unlink()
+        before = dict(WK.LAUNCHES)
+        assert h264dec.main(flags + ["-O", "b.264"]) == 0
+        torch.cuda.synchronize()
+        assert (tmp_path / "b.out").read_bytes() == want
+        assert {k: WK.LAUNCHES[k] - before[k] for k in PASSES} == {
+            k: 6 for k in PASSES}

@@ -281,5 +281,17 @@ def test_turbo_mpeg2_truncated_drains():
 
 
 def test_fast_mode_not_ported():
-    with pytest.raises(NotImplementedError, match="fast"):
-        PortMpeg2Decoder(device="cpu", fast=True)
+    """The fast decode is ported to the serial decoder
+    (tests/test_torch_mpeg2_fast.py holds it to the JAX package), but
+    not to the defer mode that the Turbo driver runs: there it raises
+    (NotImplementedError, as in the JAX package; the port's
+    StreamFeatureExcluded, on which its Pipeline replays serially)."""
+    from m2dec_tpu_torch.errors import StreamFeatureExcluded
+
+    dec = PortMpeg2Decoder(device="cpu", fast=True)
+    dec.set_data(Mpeg2StreamGen(80, 48, seed=11).generate("IPB"))
+    assert dec.decode_data() == 1
+    dec = PortMpeg2Decoder(device="cpu", fast=True, defer_recon=True)
+    dec.set_data(Mpeg2StreamGen(80, 48, seed=11).generate("IPB"))
+    with pytest.raises(StreamFeatureExcluded, match="full decode only"):
+        dec.decode_data()

@@ -141,7 +141,8 @@ def test_torch_port_never_imports_jax(tmp_path):
     conftest), the port imports every one of its modules and decodes a
     48x32 H.264 stream (TurboH264Decoder, and twice side by side through
     MultiStreamPhaseB), an 80x48 MPEG-2 stream and a 64x48 H.265 stream
-    (TurboH265Decoder); neither jax nor any module of m2dec_tpu is
+    (TurboH265Decoder), and runs the h264dec --turbo and m2dec --fast
+    tools in-process; neither jax nor any module of m2dec_tpu is
     loaded."""
     h264 = tmp_path / "s.264"
     h264.write_bytes(_b_stream())
@@ -188,6 +189,15 @@ def test_torch_port_never_imports_jax(tmp_path):
         "assert len(frames) == 5, len(frames)\n"
         "assert [f.cnt for f in frames] == [0, 1, 2, 3, 4], frames\n"
         "assert all(f.y.shape == (48, 64) and f.y.any() for f in frames)\n"
+        "import os\n"
+        "from m2dec_tpu_torch.apps import h264dec, m2dec\n"
+        f"os.chdir({str(tmp_path)!r})\n"
+        "assert h264dec.main(['--turbo', '-O', '--device', 'cpu',\n"
+        "                     's.264']) == 0\n"
+        "assert open('s.out', 'rb').read().count(b'\\r\\n') == 9\n"
+        "assert m2dec.main(['--fast', '-o', 'fast.raw', '--device', 'cpu',\n"
+        "                   's.m2v']) == 0\n"
+        "assert os.path.getsize('fast.raw') == 6 * 10 * 6 * 3 // 2\n"
         "bad = [m for m in sys.modules if m == 'jax' or m == 'm2dec_tpu'\n"
         "       or m.startswith(('jax.', 'm2dec_tpu.'))]\n"
         "assert not bad, bad\n"
