@@ -12,9 +12,12 @@ Drives the port's two main paths at 1920x1088, each on the bench's
   of bench.py's turbo_multi): native Phase A on a thread pool, then each
   picture step of all the streams with one launch per wavefront pass;
 * H.265 through TurboH265Decoder on bench.py's 1080p H.265 stream
-  (IPBPBP, batch 6): native C++ Phase A, Phase B as plain torch ops on
-  the card (H.265 has no TPU kernel), held against the port's CPU Phase
-  B, and four small streams against the Python decoder's oracle.
+  (IPBPBP, batch 6): native C++ Phase A, Phase B as torch ops on the
+  card with the intra wavefront on the CTU-tile schedule as one CUDA
+  kernel launch per picture (it replaces an XLA scan: H.265 has no TPU
+  kernel), held against the port's CPU Phase B on the level schedule,
+  the kernel against its plain version, and four small streams against
+  the Python decoder's oracle on both schedules.
 
 Then it holds each kernel against its plain PyTorch version on the card,
 each path against its plain path, against a reference (the numpy plan
@@ -115,6 +118,10 @@ STREAMS = {
 
 H264_SOURCE = "m2dec_tpu_torch/csrc/h264_wavefront.cu"
 IDCT_SOURCE = "m2dec_tpu_torch/csrc/mpeg2_idct.cu"
+H265_SOURCE = "m2dec_tpu_torch/csrc/h265_tile.cu"
+#: what the H.265 tile kernel replaces: an XLA lax.scan, not a Pallas
+#: kernel
+H265_REPLACES = "m2dec_tpu/codecs/h265/reconstruct.py:1591"
 #: kernel -> the Pallas kernel it replaces
 REPLACES = {
     "intra_luma": "m2dec_tpu/codecs/h264/pallas_wavefront.py:125",
@@ -522,14 +529,16 @@ def multi_stream(dev, smi, procs, data, kern, geom):
 def h265_split(ph, plans):
     """One run of H265SeqPhaseB ``ph`` on the plans with a synchronize
     around every stage of Phase B; returns {stage: ms per picture}. The
-    stages: host pack (plan stacking and the level schedule), upload
-    (the pinned fill and the one host->device copy), residual, MC, the
-    luma and chroma levels, deblock, SAO, assembly (the rest of the
-    per-picture work: the inter picture, the padded planes) and the pool
-    write."""
+    stages: host pack (plan stacking and the wavefront's host schedule:
+    the z-slot words in tile mode, the level schedule in level mode),
+    upload (the pinned fill and the one host->device copy), residual,
+    MC, the intra wavefront (the tile kernel, or the luma and chroma
+    levels), deblock, SAO, assembly (the rest of the per-picture work:
+    the inter picture, the padded planes) and the pool write."""
     import torch
 
     from m2dec_tpu_torch.codecs.h265 import reconstruct as R
+    from m2dec_tpu_torch.codecs.h265 import wavefront_kernels as TK
 
     secs = {}
 
@@ -545,6 +554,7 @@ def h265_split(ph, plans):
 
     patches = [(R, "stack_plans", "host pack"), (R, "_upload", "upload"),
                (R, "residual_plane", "residual"), (R, "inter_pass", "MC"),
+               (TK, "tile_wavefront", "intra tile kernel"),
                (R, "_wavefront_luma", "luma levels"),
                (R, "_wavefront_chroma", "chroma levels"),
                (R, "deblock_frame", "deblock"), (R, "sao_plane", "SAO"),
@@ -564,24 +574,52 @@ def h265_split(ph, plans):
     finally:
         for obj, name, fn in saved:
             setattr(obj, name, fn)
-    inner = ("residual", "MC", "luma levels", "chroma levels", "deblock",
-             "SAO")
+    inner = ("residual", "MC", "intra tile kernel", "luma levels",
+             "chroma levels", "deblock", "SAO")
     secs["assembly"] = secs.pop("core") - sum(secs.get(k, 0.0)
                                               for k in inner)
     secs["total"] = total
     return {k: round(1e3 * v / len(plans), 3) for k, v in secs.items()}
 
 
-def h265(dev, smi, procs):
+def tile_bounds(args, step_ms):
+    """(bound ms, bound_by, dependency floor ms, intra samples) of the
+    tile kernel on one picture's inputs ``args`` (tile_wavefront's). The
+    bytes and operations this picture's ops need: each intra sample's
+    residual read and the sample written (4 bytes each), the z-slot
+    words read; one operation per intra sample. The dependency floor:
+    the handoffs between CTAs on the critical path (a band waits on the
+    band above: rows - 1 of them) x one flag handoff (step_ms)."""
+    _, _, _, _, zl, zc, H, W, ctb_log2, _ = args
+    samples = 0
+    for words, planes in ((zl, 1), (zc, 2)):
+        w = words.cpu().numpy()
+        live = w[(w & 1) != 0]
+        samples += planes * int((1 << (2 * (((live >> 2) & 3) + 2))).sum())
+    moved = 8 * samples + tensor_bytes([zl, zc])
+    bytes_ms = 1e3 * moved / HBM_BYTES_S
+    ops_ms = 1e3 * WAVEFRONT_OPS_PER_SAMPLE * samples / OPS_S
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations",
+            ((H >> ctb_log2) - 1) * step_ms, samples)
+
+
+def h265(dev, smi, procs, step_ms):
     """Phase 9: the H.265 main path, TurboH265Decoder on bench.py's 1080p
-    stream, then its checks (every frame against the port's CPU Phase B
-    over the same plans; four small streams against the Python decoder's
-    oracle) and its figures. Returns the seconds it took."""
+    stream (CTB 16: the CTU-tile schedule, one launch of the tile kernel
+    per picture), then its checks (every frame against the port's CPU
+    Phase B on the level schedule over the same plans; the tile kernel
+    against its plain version on the card on pictures 0 (I) and 1 (P);
+    four small streams against the Python decoder's oracle on both
+    schedules) and its figures (Phase B on both schedules in turns).
+    step_ms: one flag handoff between CTAs (phase 7's probe). Returns
+    the tile kernel's entry of the kernels line."""
     import numpy as np
     import torch
 
     from m2dec_tpu_torch.codecs.h264 import wavefront_kernels as WK
     from m2dec_tpu_torch.codecs.h265 import reconstruct as R
+    from m2dec_tpu_torch.codecs.h265 import wavefront_kernels as TK
     from m2dec_tpu_torch.codecs.h265.headers import H265Decoder
     from m2dec_tpu_torch.kernels import idct_kernels as IK
     from m2dec_tpu_torch.runtime.golden import frame_checksums
@@ -612,21 +650,25 @@ def h265(dev, smi, procs):
     # the main path, with the counts of every kernel at 0 before it
     WK.reset_launch_counts()
     IK.reset_launch_counts()
+    TK.reset_launch_counts()
     t0 = time.perf_counter()
     frames = turbo_run()
     main_s = time.perf_counter() - t0
-    launches = {**WK.LAUNCHES, **IK.LAUNCHES}
+    launches = {**WK.LAUNCHES, **IK.LAUNCHES, **TK.LAUNCHES}
     if len(frames) != len(H265_PATTERN):
         raise RuntimeError(f"H.265 main path output {len(frames)} frames, "
                            f"want {len(H265_PATTERN)}")
     if [f[0] for f in frames] != sorted(f[0] for f in frames):
         raise RuntimeError("H.265 frames out of POC order")
+    want = {k: len(frames) if k == "h265_tile" else 0 for k in launches}
+    if launches != want:
+        raise RuntimeError(f"H.265 main path launches {launches}, want "
+                           f"{want}: the tile kernel once per picture")
     phase(9, f"H.265 main path on {smi}: TurboH265Decoder {W}x{H} "
              f"{H265_PATTERN} batch {H265_BATCH}: {len(frames)} frames in "
              f"{main_s:.2f} s, cold (stream {len(data)} B, waited "
-             f"{wait_s:.1f} s for it); "
-             f"kernel launches {json.dumps(launches)} (H.265 reaches no "
-             f"TPU kernel: its Phase B is plain torch)")
+             f"{wait_s:.1f} s for it); kernel launches "
+             f"{json.dumps(launches)}: the tile kernel once per picture")
 
     # Phase A alone, and the plans of the checks
     def phase_a():
@@ -642,6 +684,11 @@ def h265(dev, smi, procs):
     plans = runs[0][0].plans
     pool = len(runs[0][0].pool)
     pa_ms = 1e3 * statistics.median(s for _, s in runs) / len(plans)
+    n = len(plans)
+    if R.wf_mode_for(plans[0].size_log2) != "tile":
+        raise RuntimeError("the bench stream's CTB does not take the tile "
+                           "schedule")
+
     def timed(fn):
         sync()
         t = time.perf_counter()
@@ -649,33 +696,96 @@ def h265(dev, smi, procs):
         sync()
         return time.perf_counter() - t, out
 
-    ph = R.H265SeqPhaseB(plans[0].H, plans[0].W, pool, device=dev)
-    pb_s = [timed(lambda: ph.run_async(plans))[0]]  # captures the graphs
-    card_s, card = timed(lambda: ph.run_async(plans))
-    pb_s.append(card_s)
+    geom = (plans[0].H, plans[0].W, pool)
+    ph = R.H265SeqPhaseB(*geom, device=dev)  # the default: tile
+    ph_level = R.H265SeqPhaseB(*geom, device=dev, wf_mode="level")
+    # a tile run that keeps the kernel's inputs of pictures 0 and 1
+    captured = []
+    real = TK.tile_wavefront
+
+    def capturing(*args):
+        if len(captured) < 2:
+            captured.append(tuple(a.clone() if torch.is_tensor(a) else a
+                                  for a in args))
+        return real(*args)
+
+    TK.tile_wavefront = capturing
+    try:
+        card_s, card = timed(lambda: ph.run_async(plans))
+    finally:
+        TK.tile_wavefront = real
+    level_s, level = timed(lambda: ph_level.run_async(plans))  # graphs
     cpu_s, cpu = timed(lambda: R.H265SeqPhaseB(
-        plans[0].H, plans[0].W, pool, device="cpu").run_async(plans))
-    for i in range(len(plans)):
-        for pl, a, c in zip(("y", "cb", "cr"), card, cpu):
+        *geom, device="cpu", wf_mode="level").run_async(plans))
+    for i in range(n):
+        for pl, a, b, c in zip(("y", "cb", "cr"), card, level, cpu):
             if not torch.equal(a[i].cpu(), c[i]):
                 raise RuntimeError(f"H.265 picture {i} {pl}: the card's "
                                    f"Phase B != the port's CPU Phase B")
+            if not torch.equal(a[i], b[i]):
+                raise RuntimeError(f"H.265 picture {i} {pl}: the tile "
+                                   f"schedule != the level schedule")
     if cks(card) != sorted(tuple(f[2].flatten().tolist()) for f in frames):
         raise RuntimeError("H.265 main-path frames differ from the batched "
                            "Phase B")
-    # the small streams on the card against the Python decoder's oracle
+
+    # the tile kernel against its plain version on the card: pictures 0
+    # (I) and 1 (P), each on its captured inputs (the kernel works in
+    # place, so each call gets fresh copies of the planes)
+    def tile_args(k):
+        a = captured[k]
+        return lambda: (a[0].clone(), a[1].clone(), *a[2:])
+
+    tile_err, tile_ms, plain_ms = [], [], None
+    for k in range(2):
+        mk = tile_args(k)
+        args = mk()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        want = R._wavefront_tile_plain(*args)
+        e.record()
+        sync()
+        if k == 0:
+            plain_ms = s.elapsed_time(e)
+        got = TK.tile_wavefront(*mk())
+        sync()
+        tile_err.append(max(max_abs_err(g, w) for g, w in zip(got, want)))
+        tile_ms.append(event_ms(TK.tile_wavefront, mk, 20))
+    if any(tile_err):
+        raise RuntimeError(f"the tile kernel differs from its plain version "
+                           f"on pictures 0 and 1: max abs err {tile_err}")
+    bounds = [tile_bounds(captured[k], step_ms) for k in range(2)]
+    phase(9, f"H.265 tile kernel vs plain on {smi}: pictures 0 (I) and 1 "
+             f"(P) byte-equal (max abs err {tile_err}); kernel "
+             f"{tile_ms[0]:.4f} and {tile_ms[1]:.4f} ms (CUDA events, "
+             f"median of 20), plain {plain_ms:.1f} ms on picture 0 (once); "
+             f"intra samples {[b[3] for b in bounds]}; bound "
+             f"{bounds[0][0]:.5f} and {bounds[1][0]:.5f} ms "
+             f"({bounds[0][1]}); dependency floor {bounds[0][2]:.4f} ms "
+             f"({(plans[0].H >> plans[0].size_log2) - 1} handoffs x "
+             f"{1e3 * step_ms:.3f} us)")
+
+    # the small streams on the card against the Python decoder's oracle,
+    # on both schedules (tile forced at CTB 32), and TurboH265Decoder's
+    # default
     cover = []
     for name in H265_COVER:
         s = stream(name, procs)
         dec = H265Decoder(device="cpu")
         dec.set_data(s)
         exp = dec.decode_all(collect_plans=True, keep_oracle=True)
-        outs = R.replay_plans(dec.plans, device=dev)
-        for k, (p, planes) in enumerate(zip(dec.plans, outs)):
-            for pl, a, b in zip(("y", "cb", "cr"), planes, p.oracle):
-                if not np.array_equal(a, b):
-                    raise RuntimeError(f"{name}: picture {k} {pl} != the "
-                                       f"Python decoder's oracle")
+        for mode in ("tile", "level"):
+            n0 = TK.LAUNCHES["h265_tile"]
+            outs = R.replay_plans(dec.plans, device=dev, wf_mode=mode)
+            if TK.LAUNCHES["h265_tile"] - n0 != (
+                    len(dec.plans) if mode == "tile" else 0):
+                raise RuntimeError(f"{name}: tile launches in {mode} mode")
+            for k, (p, planes) in enumerate(zip(dec.plans, outs)):
+                for pl, a, b in zip(("y", "cb", "cr"), planes, p.oracle):
+                    if not np.array_equal(a, b):
+                        raise RuntimeError(
+                            f"{name}: picture {k} {pl} on the {mode} "
+                            f"schedule != the Python decoder's oracle")
         got = TurboH265Decoder(s, batch=2, device=dev).decode_all()
         if len(got) != len(exp):
             raise RuntimeError(f"{name}: {len(got)} frames, want "
@@ -685,36 +795,47 @@ def h265(dev, smi, procs):
                 if not np.array_equal(getattr(g, pl), getattr(e, pl)):
                     raise RuntimeError(f"{name}: frame {k} {pl} differs")
         multi = any(p.multi_slice for p in dec.plans)
-        cover.append(f"{name} ({len(dec.plans)} pictures"
+        cover.append(f"{name} ({len(dec.plans)} pictures, CTB "
+                     f"{1 << dec.plans[0].size_log2}"
                      f"{', multi-slice' if multi else ''})")
-    n = len(plans)
-    phase(9, f"H.265 checks: {n} pictures of the card's Phase B equal to "
-             f"the port's CPU Phase B byte for byte (the CPU of the host of "
-             f"{smi}: {1e3 * cpu_s / n:.0f} ms/picture), and the main path's "
-             f"frames to "
-             f"them by device checksum; on the card, Phase B and "
+    phase(9, f"H.265 checks: {n} pictures of the card's Phase B (tile "
+             f"schedule) equal to the port's CPU Phase B on the level "
+             f"schedule byte for byte (the CPU of the host of {smi}: "
+             f"{1e3 * cpu_s / n:.0f} ms/picture) and to the card's level "
+             f"schedule, and the main path's frames to them by device "
+             f"checksum; on the card, Phase B on both schedules and "
              f"TurboH265Decoder equal to the Python decoder's oracle on "
              + "; ".join(cover))
 
-    # figures: Phase B warm, end to end, the split, the level counts and
-    # one batch under the profiler (its raw device events: millions of
-    # them, too many to aggregate into profiler events)
-    pb_s += [timed(lambda: ph.run_async(plans))[0] for _ in range(2)]
-    pb_ms = 1e3 * statistics.median(pb_s[1:]) / n
+    # figures: Phase B on both schedules in turns (tile, level, level,
+    # tile, ...), end to end, the split, the ops and levels per picture
+    # and one tile batch under the profiler
+    pb = {"tile": [], "level": []}
+    for k in range(6):
+        mode = ("tile", "level")[(k + k // 2) % 2]
+        pb[mode].append(timed(lambda: (ph if mode == "tile" else ph_level)
+                              .run_async(plans))[0])
+    pb_ms = {m: 1e3 * statistics.median(v) / n for m, v in pb.items()}
     e2e_ms = 1e3 * statistics.median(
         timed(turbo_run)[0] for _ in range(3)) / len(frames)
     phase(9, f"H.265 timing on {smi}: {W}x{H} {H265_PATTERN}, Phase A "
              f"{pa_ms:.2f} ms/picture on the host (native, median of 3); "
-             f"Phase B {pb_ms:.1f} ms/picture (warm, median of 3 x {n}; "
-             f"the first run, which captures the CUDA graphs, "
-             f"{1e3 * pb_s[0] / n:.1f}); end to end (TurboH265Decoder batch "
-             f"{H265_BATCH}, Phase A + B, warm) {e2e_ms:.1f} ms/picture "
-             f"({1e3 / e2e_ms:.3f} fps, median of 3)")
+             f"Phase B on the tile schedule {pb_ms['tile']:.2f} "
+             f"ms/picture, on the level schedule {pb_ms['level']:.1f} "
+             f"(warm, median of 3 x {n} each, run in turns; the first "
+             f"runs {1e3 * card_s / n:.1f} (tile, with the kernel's "
+             f"inputs copied) and {1e3 * level_s / n:.1f} (level, "
+             f"capturing its CUDA graphs)); end to end (TurboH265Decoder "
+             f"batch {H265_BATCH}, Phase A + B, tile, warm) {e2e_ms:.1f} "
+             f"ms/picture ({1e3 / e2e_ms:.3f} fps, median of 3)")
     split = h265_split(ph, plans)
-    phase(9, f"H.265 Phase B split on {smi}, ms per picture, a synchronize "
-             f"around each stage: " + json.dumps(split))
+    phase(9, f"H.265 Phase B split on the tile schedule on {smi}, ms per "
+             f"picture, a synchronize around each stage: "
+             + json.dumps(split))
+    ops = [[int((z & 1).astype(bool).sum()) for z in R._ctu_zslots(p)]
+           for p in plans]
     levels = [[len(m.banks[0][1]), len(m.banks[2][1])]
-              for m in (R._PicMeta(p) for p in plans)]
+              for m in (R._PicMeta(p, wf_mode="level") for p in plans)]
     t0 = time.perf_counter()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -728,17 +849,25 @@ def h265(dev, smi, procs):
                 n_copy += 1
             else:
                 n_kern += 1
-    phase(9, f"H.265 level counts per picture in decode order [luma, "
-             f"chroma]: {json.dumps(levels)}; one batch under "
-             f"torch.profiler on {smi}: {n_kern / n:.0f} CUDA kernels and "
-             f"{n_copy / n:.1f} copies/memsets per picture, "
-             f"{1e3 * prof_s / n:.1f} ms/picture of wall time, "
-             f"{busy_ns / 1e6 / n:.2f} ms/picture of device time (busy "
-             f"share {busy_ns / 1e9 / prof_s:.4f}); profiling and reading "
-             f"the events took {time.perf_counter() - t0:.1f} s")
+    phase(9, f"H.265 intra ops per picture in decode order [luma, chroma "
+             f"(each for cb and cr)]: {json.dumps(ops)}; level counts of "
+             f"the level schedule [luma, chroma]: {json.dumps(levels)}; one "
+             f"tile batch under torch.profiler on {smi}: "
+             f"{n_kern / n:.0f} CUDA kernels and {n_copy / n:.1f} "
+             f"copies/memsets per picture, {1e3 * prof_s / n:.1f} "
+             f"ms/picture of wall time, {busy_ns / 1e6 / n:.2f} ms/picture "
+             f"of device time (busy share {busy_ns / 1e9 / prof_s:.4f}); "
+             f"profiling and reading the events took "
+             f"{time.perf_counter() - t0:.1f} s")
     took = time.perf_counter() - t_phase
     phase(9, f"H.265 phase took {took:.1f} s on {smi}")
-    return took
+    return {"name": "h265_tile", "route": "cuda", "source": H265_SOURCE,
+            "replaces": H265_REPLACES, "launches": launches["h265_tile"],
+            "max_abs_err": max(tile_err), "ms": tile_ms[0],
+            "plain_ms": plain_ms, "bound_ms": bounds[0][0],
+            "bound_by": bounds[0][1], "library_ms": None,
+            "dependency_ms": bounds[0][2], "inter_ms": tile_ms[1],
+            "multistream_launches": None, "stacked4_ms": None}
 
 
 def make_ps(m2v_name):
@@ -773,9 +902,10 @@ def entry_points(dev, smi, procs, data, m2data, h264_cks, m2_cks):
     the Turbo drivers' frames of phases 2 and 5 (their device checksums
     equal to those phases', in output order), the port's CPU fast path,
     and the Python H.265 decoder's frames. Every Pipeline of a thrplay
-    run must finish with no serial replay (its ``replays`` counter), so
-    the H.265 leg, which has no kernel to count, ran through the Turbo
-    driver or the serial decoder it was given, on the card.
+    run must finish with no serial replay (its ``replays`` counter), and
+    the H.265 leg (CTB 16) must launch the tile kernel once per picture,
+    so it ran through the Turbo driver or the serial decoder it was
+    given, on the card.
     Returns ({kernel: {run: launches}}, seconds)."""
     import contextlib
     import io
@@ -786,6 +916,7 @@ def entry_points(dev, smi, procs, data, m2data, h264_cks, m2_cks):
 
     from m2dec_tpu_torch.apps import h264dec, m2dec, thrplay
     from m2dec_tpu_torch.codecs.h264 import wavefront_kernels as WK
+    from m2dec_tpu_torch.codecs.h265 import wavefront_kernels as TK
     from m2dec_tpu_torch.codecs.h265.headers import H265Decoder
     from m2dec_tpu_torch.codecs.mpeg2.decoder import Mpeg2Decoder
     from m2dec_tpu_torch.kernels import idct_kernels as IK
@@ -833,9 +964,10 @@ def entry_points(dev, smi, procs, data, m2data, h264_cks, m2_cks):
     oracle = H265Decoder()
     oracle.set_data(h265_data)
     h265_md5 = b"".join(frame_md5_line(f) for f in oracle.decode_all())
+    n265 = h265_md5.count(b"\r\n")
     ps_path = make_ps(M2V_STREAM)
 
-    kernels = (*ROW_KERNELS, "idct8x8")
+    kernels = (*ROW_KERNELS, "idct8x8", "h265_tile")
     cli_launches = {k: {} for k in kernels}
     pipes = []  # (codec, replays) of each Pipeline run of a tool run
     pipeline_run = Pipeline.run
@@ -866,6 +998,7 @@ def entry_points(dev, smi, procs, data, m2data, h264_cks, m2_cks):
                     (td / p).unlink(missing_ok=True)
                 WK.reset_launch_counts()
                 IK.reset_launch_counts()
+                TK.reset_launch_counts()
                 pipes.clear()
                 err = io.StringIO()
                 t0 = time.perf_counter()
@@ -873,7 +1006,7 @@ def entry_points(dev, smi, procs, data, m2data, h264_cks, m2_cks):
                     code = tool.main(argv)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-                got = {**WK.LAUNCHES, **IK.LAUNCHES}
+                got = {**WK.LAUNCHES, **IK.LAUNCHES, **TK.LAUNCHES}
                 if code != 0:
                     raise RuntimeError(f"{name}: exit {code}: "
                                        f"{err.getvalue()}")
@@ -915,19 +1048,22 @@ def entry_points(dev, smi, procs, data, m2data, h264_cks, m2_cks):
                 {"idct8x8": nm2})
             run(m2dec, ["--fast", "-o", "fast.raw", "m2v.m2v"],
                 {"fast.raw": fast_raw}, nm2, {})
-            # the Turbo drivers, no serial replay: the H.264 passes once
-            # per picture, the IDCT once per batch of the MPEG-2 stream
+            # the Turbo drivers, no serial replay: the H.264 passes and
+            # the H.265 tile kernel once per picture, the IDCT once per
+            # batch of the MPEG-2 stream
             playlist = {"h264.out": h264_md5, "m2v.out": m2_md5,
                         "h265.out": h265_md5}
-            n_list = n264 + nm2 + h265_md5.count(b"\r\n")
+            n_list = n264 + nm2 + n265
             no_replay = [("h264", 0), ("mpeg2", 0), ("h265", 0)]
             run(thrplay, ["--turbo", "-m", "h264.264", "m2v.mpg",
                           "h265.265"], playlist, n_list,
-                {**per_pic, "idct8x8": -(-nm2 // BATCH)}, no_replay)
+                {**per_pic, "idct8x8": -(-nm2 // BATCH),
+                 "h265_tile": n265}, no_replay)
             # the Pipeline's serial decoders on the card: the H.264
-            # passes and the IDCT once per picture
+            # passes, the IDCT and the tile kernel once per picture
             run(thrplay, ["-m", "h264.264", "m2v.mpg", "h265.265"],
-                playlist, n_list, {**per_pic, "idct8x8": nm2}, no_replay)
+                playlist, n_list, {**per_pic, "idct8x8": nm2,
+                                   "h265_tile": n265}, no_replay)
         finally:
             os.chdir(cwd)
             Pipeline.run = pipeline_run
@@ -1420,8 +1556,8 @@ def run(dev, procs, t_start):
     multi_launches, stacked_ms = multi_stream(dev, smi, procs, data, kern,
                                               geom)
 
-    # -- phase 9: H.265 (TurboH265Decoder, plain torch Phase B) ----------
-    h265(dev, smi, procs)
+    # -- phase 9: H.265 (TurboH265Decoder, the tile kernel) --------------
+    tile_entry = h265(dev, smi, procs, step_ms)
 
     # -- phase 10: the command-line tools on the card --------------------
     cli_launches, _ = entry_points(dev, smi, procs, data, m2data, turbo,
@@ -1443,7 +1579,8 @@ def run(dev, procs, t_start):
                                   for S, v in multi_launches.items()},
          "stacked4_ms": stacked_ms.get(k),
          "cli_launches": cli_launches[k]}
-        for k in REPLACES]}))
+        for k in REPLACES] + [
+        {**tile_entry, "cli_launches": cli_launches["h265_tile"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

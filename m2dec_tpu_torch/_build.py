@@ -41,6 +41,9 @@ LIBRARIES = {
     "mpeg2_idct": {
         "mpeg2_idct8x8": [_VP, _VP, ctypes.c_longlong, _VP],
     },
+    "h265_tile": {
+        "h265_tile_wavefront": [_VP] * 8 + [_INT] * 4 + [_VP],
+    },
 }
 
 _LOCK = threading.Lock()

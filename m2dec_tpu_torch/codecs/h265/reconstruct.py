@@ -19,13 +19,21 @@ decoder of this package is the scalar spec it is held to):
   chroma 4-tap on emulated packed-uint64 lanes (two 32-bit lanes held in
   int64 with explicit masks, carries and borrows) replicating
   interp_chroma's borrow-bias arithmetic — h265.cpp:3386-3551;
-* intra: the dependency-level schedule (``_schedule_levels``, host
-  numpy through the native ``oplevel.cpp``) replayed as a Python loop
-  over the host-known levels (``_LevelRunner``); each level applies its
-  ops in two size banks, every lane (op) evaluated in parallel from
-  neighbour lines gathered out of the pre-level plane, then written with
-  one scatter-add of the changes. On a CUDA device each kind of level
-  is one captured CUDA graph of those torch ops, replayed per level;
+* intra, on one of two schedules (``wf_mode_for``: tile up to CTB 16,
+  level above; the ``wf_mode`` argument forces either):
+  - the CTU-tile schedule: one step per CTU anti-diagonal, the CTU's
+    z-order unrolled as slots; on a CUDA device one launch of the
+    hand-written kernel ``csrc/h265_tile.cu`` per picture
+    (``wavefront_kernels.tile_wavefront``), on the CPU its plain version
+    ``_wavefront_tile_plain``;
+  - the dependency-level schedule (``_schedule_levels``, host numpy
+    through the native ``oplevel.cpp``) replayed as a Python loop over
+    the host-known levels (``_LevelRunner``); each level applies its ops
+    in two size banks, every lane (op) evaluated in parallel from
+    neighbour lines gathered out of the pre-level plane, then written
+    with one scatter-add of the changes. On a CUDA device each kind of
+    level is one captured CUDA graph of those torch ops, replayed per
+    level;
 * deblocking: whole-frame vertical pass then horizontal pass, strengths
   from the plan's recorded edge maps;
 * SAO: a per-pixel map over the pre-SAO plane.
@@ -49,6 +57,7 @@ from ...errors import StreamFeatureExcluded
 from ...native import load_oplevel
 from ..mpeg2.reconstruct import _upload
 from . import residual as _RES
+from . import wavefront_kernels as TK
 from .intrapos_tables import COEF as _ACOEF
 from .intrapos_tables import POS as _APOS
 
@@ -682,13 +691,13 @@ _ANG_FUSED = _build_ang_fused()
 def _device_tables(device):
     """The constant tables on ``device`` (a few KB), built once per
     device: the transform matrices (float64), the chroma taps and the
-    fused angular table (int64)."""
+    fused angular table (int64, and int32 for the tile kernel)."""
     def t(a, dtype):
         return torch.as_tensor(np.asarray(a)).to(device=device, dtype=dtype)
 
     out = {f"tmat{k}": t(v, F64) for k, v in _TMAT.items()}
     out.update(dmat=t(_DMAT, F64), ctap=t(_CTAP, I64),
-               ang=t(_ANG_FUSED, I64))
+               ang=t(_ANG_FUSED, I64), ang32=t(_ANG_FUSED, I32))
     return out
 
 
@@ -1192,6 +1201,137 @@ def _plan_levels(plan):
     return plan._levels
 
 
+# =====================================================================
+# the CTU-tile schedule (host numpy)
+# =====================================================================
+#
+# One step per CTU anti-diagonal d = cx + 2*cy (the reference's own CTU
+# wavefront order, h265.cpp:4752-4799), the CTU-local z-order unrolled
+# as slots over the 4x4 cell grid: the op whose top-left cell is z-cell
+# j applies at slot j. k = 2 in d = cx + k*cy suffices: valid neighbour
+# reads reach at most C+S-1 < 2C samples right of the CTU origin and
+# never below the CTU row, so a CTU reads only CTUs of earlier
+# diagonals. The CUDA kernel (csrc/h265_tile.cu) runs this schedule as
+# one CTA per CTU row; _wavefront_tile_plain is its plain version.
+
+#: packed z-slot op fields: used(2) | (sl2-2)(2) | mode(6) | vx(7) | vy(7)
+_ZF_USED, _ZF_SL2, _ZF_MODE, _ZF_VX, _ZF_VY = 0, 2, 4, 10, 17
+
+
+@functools.lru_cache(maxsize=16)
+def _zslot_table(cb_log2):
+    """Z-ordered (oy, ox, Smax) slots over a CTB's 4x4 cell grid.
+    Smax = the largest block size a slot's alignment admits (an op's
+    top-left cell determines its slot; quad-tree alignment makes the
+    mapping unique and z-monotonic)."""
+    n = 1 << (cb_log2 - 2)
+    out = []
+    for z in range(n * n):
+        r = c = 0
+        for k in range(cb_log2 - 2):
+            c |= ((z >> (2 * k)) & 1) << k
+            r |= ((z >> (2 * k + 1)) & 1) << k
+        oy, ox = r << 2, c << 2
+        smax = 4
+        while (smax < 32 and smax < (1 << cb_log2)
+               and oy % (smax * 2) == 0 and ox % (smax * 2) == 0):
+            smax *= 2
+        out.append((oy, ox, smax))
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=16)
+def _tile_lanes_band(cols, rows):
+    """Band-indexed lane table: ctu_of [D, rows] int32 — the CTU of
+    band (CTU row) cy on diagonal d, or -1 (band idle on d)."""
+    D = cols + 2 * (rows - 1)
+    out = np.full((D, rows), -1, np.int32)
+    for d in range(D):
+        for cy in range(rows):
+            cx = d - 2 * cy
+            if 0 <= cx < cols:
+                out[d, cy] = cy * cols + cx
+    return out
+
+
+def _pack_zslots(ops, n_slots, cb_log2):
+    """Pack a per-CTU op array [n_ctu, CAP, 7] into z-slot field words
+    [n_ctu, n_slots] int32 (0 = no op)."""
+    flat = np.asarray(ops, np.int32)
+    n_ctu = flat.shape[0]
+    zl = np.zeros((n_ctu, n_slots), np.int32)
+    ic, io = np.nonzero((flat[..., 0] & 1) == 1)
+    if len(ic) == 0:
+        return zl, ic
+    y0, x0 = flat[ic, io, 1], flat[ic, io, 2]
+    cb = 1 << cb_log2
+    r, c = (y0 % cb) >> 2, (x0 % cb) >> 2
+    slot = np.zeros(len(ic), np.int64)
+    for k in range(cb_log2 - 2):
+        slot |= ((c >> k) & 1) << (2 * k)
+        slot |= ((r >> k) & 1) << (2 * k + 1)
+    packed = ((flat[ic, io, 0] & 3)
+              | ((flat[ic, io, 3] - 2) << _ZF_SL2)
+              | (flat[ic, io, 4] << _ZF_MODE)
+              | (np.clip(flat[ic, io, 5], 0, 127) << _ZF_VX)
+              | (np.clip(flat[ic, io, 6], 0, 127) << _ZF_VY))
+    zl[ic, slot] = packed
+    return zl, ic
+
+
+def _ctu_zslots(plan):
+    """The plan's per-CTU z-slot words (zl [n_ctu, SL], zc [n_ctu, SC])
+    int32, luma and chroma (one chroma word serves cb and cr: HEVC has
+    a single chroma mode): what the tile kernel reads."""
+    cl2 = plan.size_log2
+    zl, _ = _pack_zslots(plan.ops_l, 1 << (2 * (cl2 - 2)), cl2)
+    zc, _ = _pack_zslots(plan.ops_c, 1 << (2 * (cl2 - 3)), cl2 - 1)
+    return zl, zc
+
+
+def _diag_zslots(zl, zc, cols, rows):
+    """Per-CTU words -> (fzl [D, rows, SL], fzc [D, rows, SC], actm
+    [D, 2]): per diagonal and band the words of the band's CTU (0 for
+    idle bands), and whether a diagonal has any luma / chroma op."""
+    lanes = _tile_lanes_band(cols, rows)          # [D, rows]
+    safe = np.maximum(lanes, 0)
+    live = (lanes >= 0)[:, :, None]
+    fzl = np.where(live, zl[safe], 0).astype(np.int32)
+    fzc = np.where(live, zc[safe], 0).astype(np.int32)
+    actm = np.stack([(fzl & 1).any(axis=(1, 2)),
+                     (fzc & 1).any(axis=(1, 2))], 1)
+    return fzl, fzc, actm
+
+
+def _plan_zslots(plan):
+    """Tile-wavefront tensors for one plan (cached):
+    (fzl [D, rows, SL], fzc [D, rows, SC], actm [D, 2]) — per-diagonal
+    per-band packed z-slot words (0 for idle bands) plus the
+    per-diagonal any-luma-op / any-chroma-op flags."""
+    cached = getattr(plan, "_zslots", None)
+    if cached is not None:
+        return cached
+    plan._zslots = _diag_zslots(*_ctu_zslots(plan), plan.columns,
+                                plan.rows)
+    return plan._zslots
+
+
+def wf_mode_for(ctb_log2):
+    """The intra wavefront's schedule for a CTB size: "tile" (one step
+    per CTU anti-diagonal, the CTU's z-order unrolled; the CUDA kernel
+    on the card) up to CTB 16, "level" (the dependency levels) above.
+    The JAX package's rule; its M2DEC_TPU_H265_WF override is the
+    ``wf_mode`` argument here."""
+    return "tile" if ctb_log2 <= 4 else "level"
+
+
+def _check_wf_mode(wf_mode):
+    if wf_mode not in (None, "tile", "level"):
+        raise ValueError(f"wf_mode must be None, 'tile' or 'level', got "
+                         f"{wf_mode!r}")
+    return wf_mode
+
+
 #: lanes of each bank's op buffer: the level caps bound a level's ops
 #: per bank (the chroma banks carry each op twice, for cb and cr)
 _BANK_LANES = {"ls": _LEVEL_CAP, "lb": _LEVEL_CAP_BIG,
@@ -1212,7 +1352,8 @@ def _bank_rows(pk, key):
 class _LevelRunner:
     """The intra wavefront of one geometry over static buffers: the
     padded planes (luma [H+33, W+33]; cb over cr, each with 17 pad rows
-    and columns) and one op buffer per bank.
+    and columns) and one op buffer per bank. The tile schedule works in
+    place on the same padded planes and uses no op buffer.
 
     A level runs its small and big bank as two lane batches that both
     read the pre-level plane and then add their changes (the schedule
@@ -1333,6 +1474,65 @@ def _wavefront_chroma(wf, cs, has_s, cb, has_b):
             wf.level(rows, False)
 
 
+def _tile_ops(words, ctus, cols, C, oy, ox):
+    """Op rows [L, 7] (used, y0, x0, sl2, mode, vx, vy) of the packed
+    z-slot ``words`` at slot (oy, ox) of CTUs ``ctus`` (CTB C)."""
+    return np.stack([words & 3, (ctus // cols) * C + oy,
+                     (ctus % cols) * C + ox,
+                     ((words >> _ZF_SL2) & 3) + 2,
+                     (words >> _ZF_MODE) & 63, (words >> _ZF_VX) & 127,
+                     (words >> _ZF_VY) & 127], 1).astype(np.int32)
+
+
+def _wavefront_tile_plain(y, cbcr, res_y, res_cbcr, zl, zc, H, W,
+                          ctb_log2, strong_en):
+    """The tile wavefront in plain torch, in place on the _LevelRunner's
+    padded planes (luma [H+33, W+33]; cb over cr, ``_CR0`` apart) from
+    the per-CTU z-slot words zl, zc (``_ctu_zslots``); returns (y,
+    cbcr). The plain version of the CUDA kernel.
+
+    A loop over the diagonals d and then the z-slots j: the ops at slot
+    j of the CTUs on diagonal d (one per band) touch disjoint blocks and
+    read only what earlier steps wrote, so each (d, j) group is one lane
+    batch of ``_intra_op_delta`` at the slot's Smax, added with one
+    scatter-add; the chroma words apply to cb and then, shifted by
+    ``_CR0``, to cr in the same batch. Groups with no op are skipped on
+    the host (the words are read to the host once)."""
+    dev = y.device
+    consts = _device_tables(dev)["ang"]
+    cols, rows = W >> ctb_log2, H >> ctb_log2
+    Hc, Wc = H >> 1, W >> 1
+    lanes = _tile_lanes_band(cols, rows)
+    fzl, fzc, actm = _diag_zslots(zl.cpu().numpy(), zc.cpu().numpy(),
+                                  cols, rows)
+    for luma, plane, resid, fz, cl2 in ((True, y, res_y, fzl, ctb_log2),
+                                        (False, cbcr, res_cbcr, fzc,
+                                         ctb_log2 - 1)):
+        flat = plane.view(-1)
+        for d in np.flatnonzero(actm[:, 0 if luma else 1]):
+            band = lanes[d] >= 0
+            ctus = lanes[d][band]
+            for j, (oy, ox, S) in enumerate(_zslot_table(cl2)):
+                f = fz[d, band, j]
+                live = (f & 1) != 0
+                if not live.any():
+                    continue
+                ops = _tile_ops(f[live], ctus[live], cols, 1 << cl2, oy, ox)
+                if luma:
+                    idx, delta = _intra_op_delta(
+                        plane, resid, torch.from_numpy(ops).to(dev), S,
+                        True, strong_en and S == 32, H, W, consts)
+                else:
+                    cr = ops.copy()
+                    cr[:, 1] += _CR0(Hc)
+                    idx, delta = _intra_op_delta(
+                        plane, resid,
+                        torch.from_numpy(np.concatenate([ops, cr])).to(dev),
+                        S, False, False, Hc, Wc, consts, _CR0(Hc))
+                flat.scatter_add_(0, idx, delta)
+    return y, cbcr
+
+
 # =====================================================================
 # whole picture
 # =====================================================================
@@ -1348,9 +1548,10 @@ def _tu_sizes(tu, sizes):
 
 class _PicMeta:
     """What the host knows of one picture before Phase B runs, from its
-    numpy plan: every branch and loop bound of ``_recon_picture``."""
+    numpy plan: every branch and loop bound of ``_recon_picture``.
+    wf_mode: the intra wavefront's schedule (None: ``wf_mode_for``)."""
 
-    def __init__(self, plan, slices=None):
+    def __init__(self, plan, slices=None, wf_mode=None):
         self.H, self.W = plan.H, plan.W
         self.ctb_log2 = plan.size_log2
         self.pic_w, self.pic_h = plan.pic_width, plan.pic_height
@@ -1372,9 +1573,18 @@ class _PicMeta:
         dbv, dbh, dbcv, dbch = self.maps[:4]
         self.deblock = bool(dbv[..., 0].any() or dbh[..., 0].any()
                             or (dbcv >= 0).any() or (dbch >= 0).any())
-        #: per bank (_BANKS order): (padded rows [D, L, 7], has-op list)
-        self.banks = [_bank_rows(t, k)
-                      for t, k in zip(_plan_levels(plan), _BANKS)]
+        self.wf_mode = (_check_wf_mode(wf_mode)
+                        or wf_mode_for(plan.size_log2))
+        if self.wf_mode == "tile":
+            #: the per-CTU z-slot words (zl, zc) of the tile kernel
+            self.zslots = _ctu_zslots(plan)
+            self.banks = None
+        else:
+            #: per bank (_BANKS order): (padded rows [D, L, 7], has-op
+            #: list)
+            self.banks = [_bank_rows(t, k)
+                          for t, k in zip(_plan_levels(plan), _BANKS)]
+            self.zslots = None
 
 
 def _slice_masked_maps(plan):
@@ -1426,9 +1636,10 @@ def _slice_masked_maps(plan):
 def _recon_picture(x, m, pool_y, pool_cb, pool_cr, wf):
     """One picture's Phase B. x: the plan's device tensors (coef_*,
     tu_*, slot, mv, mc_used, mc_remap, the four bank tensors ls, lb, cs,
-    cb, and the edge and SAO maps, per slice for a multi-slice picture);
-    m: its _PicMeta; wf: the geometry's _LevelRunner. Returns (y, cb,
-    cr) uint8 planes."""
+    cb in level mode or the z-slot words zl, zc in tile mode, and the
+    edge and SAO maps, per slice for a multi-slice picture); m: its
+    _PicMeta; wf: the geometry's _LevelRunner. Returns (y, cb, cr) uint8
+    planes."""
     H, W = m.H, m.W
     Hc, Wc = H >> 1, W >> 1
     res_y = residual_plane(x["coef_y"], x["tu_y"], m.sizes_y, True)
@@ -1450,11 +1661,16 @@ def _recon_picture(x, m, pool_y, pool_cb, pool_cr, wf):
     else:
         y, cb, cr = prior_y, prior_cb, prior_cr
     # intra wavefront over padded planes; cb/cr vertically stacked so
-    # each level runs ONE chroma apply for both components
+    # each step runs ONE chroma apply for both components
     wf.load(y, cb, cr, res_y, res_cb, res_cr)
-    (_, hs), (_, hb), (_, cs), (_, cb_) = m.banks
-    _wavefront_luma(wf, x["ls"], hs, x["lb"], hb, m.strong_en)
-    _wavefront_chroma(wf, x["cs"], cs, x["cb"], cb_)
+    if m.wf_mode == "tile":
+        # the CUDA kernel on the card, its plain version on the CPU
+        TK.tile_wavefront(wf.y, wf.c, wf.ry, wf.rc, x["zl"], x["zc"], H,
+                          W, m.ctb_log2, m.strong_en)
+    else:
+        (_, hs), (_, hb), (_, cs), (_, cb_) = m.banks
+        _wavefront_luma(wf, x["ls"], hs, x["lb"], hb, m.strong_en)
+        _wavefront_chroma(wf, x["cs"], cs, x["cb"], cb_)
     y, cb, cr = wf.planes()
     cl2 = m.ctb_log2
     pw, ph = m.pic_w, m.pic_h
@@ -1521,21 +1737,37 @@ def _slices_of(plan):
                      list(plan.slice_rows[1:]) + [plan.rows]))
 
 
-def stack_plans(plans):
+#: the wavefront's per-picture rows of ``_upload``: the level banks
+#: (level mode) and the z-slot words (tile mode)
+_WF_KEYS = (*_BANKS, "zl", "zc")
+
+
+def _wf_rows(m):
+    """{key of _WF_KEYS: its rows} of picture meta ``m``'s mode."""
+    if m.wf_mode == "tile":
+        return dict(zip(("zl", "zc"), m.zslots))
+    return {k: m.banks[j][0] for j, k in enumerate(_BANKS)}
+
+
+def stack_plans(plans, wf_mode=None):
     """Host prep of a batch: the fields of ``_upload`` (every picture's
-    plan tensors stacked [N, ...]; the level banks, used slots and, for
-    a multi-slice picture, its per-slice maps as one row per key, the
-    pictures' rows concatenated) and each picture's _PicMeta."""
-    metas = [_PicMeta(p, _slices_of(p)) for p in plans]
+    plan tensors stacked [N, ...]; the wavefront rows (level banks or
+    z-slot words), used slots and, for a multi-slice picture, its
+    per-slice maps as one row per key, the pictures' rows concatenated)
+    and each picture's _PicMeta. wf_mode: the intra schedule (None:
+    ``wf_mode_for`` of each plan's CTB size)."""
+    metas = [_PicMeta(p, _slices_of(p), wf_mode) for p in plans]
     fields = {k: ([np.asarray(getattr(p, k)) for p in plans], dt)
               for k, dt in _PLAN_KEYS}
     fields["mc_remap"] = ([m.mc_remap for m in metas], np.int32)
     used = [np.asarray(m.mc_used, np.int32) for m in metas]
     fields["mc_used"] = ([np.concatenate(used + [np.zeros(1, np.int32)])],
                          np.int32)
-    for j, k in enumerate(_BANKS):
-        fields[k] = ([np.concatenate([m.banks[j][0] for m in metas])],
-                     np.int32)
+    rows = [_wf_rows(m) for m in metas]
+    for k in _WF_KEYS:
+        have = [r[k] for r in rows if k in r]
+        if have:
+            fields[k] = ([np.concatenate(have)], np.int32)
     for b, m in enumerate(metas):
         for (k, dt), v in zip(_MAP_KEYS, m.maps):
             fields[f"{k}.{b}"] = ([np.asarray(v)], dt)
@@ -1545,42 +1777,44 @@ def stack_plans(plans):
 def _picture_views(x, metas):
     """Per picture, its device views of the uploaded batch ``x``."""
     out = []
-    offs = {k: 0 for k in (*_BANKS, "mc_used")}
+    offs = {k: 0 for k in (*_WF_KEYS, "mc_used")}
     for b, m in enumerate(metas):
         v = {k: x[k][b] for k, _ in _PLAN_KEYS + (("mc_remap", 0),)}
         n = len(m.mc_used)
         v["mc_used"] = x["mc_used"][0, offs["mc_used"]:
                                     offs["mc_used"] + n].long()
         offs["mc_used"] += n
-        for j, k in enumerate(_BANKS):
-            n = len(m.banks[j][1])
-            v[k] = x[k][0, offs[k]: offs[k] + n]
-            offs[k] += n
+        for k, r in _wf_rows(m).items():
+            v[k] = x[k][0, offs[k]: offs[k] + len(r)]
+            offs[k] += len(r)
         for k, _ in _MAP_KEYS:
             v[k] = x[f"{k}.{b}"][0]
         out.append(v)
     return out
 
 
-def recon_plan(plan, pool_y, pool_cb, pool_cr, device=None):
+def recon_plan(plan, pool_y, pool_cb, pool_cr, device=None, wf_mode=None):
     """Reconstruct one plan against the pool stacks (numpy or tensors);
     returns (y, cb, cr) uint8 tensors on ``device`` (default: the CUDA
-    device)."""
+    device). wf_mode: the intra schedule, "tile" or "level" (None:
+    ``wf_mode_for`` of the plan's CTB size)."""
     dev = resolve_device(device)
     pools = [torch.as_tensor(p).to(dev) for p in (pool_y, pool_cb, pool_cr)]
-    fields, metas = stack_plans([plan])
+    fields, metas = stack_plans([plan], wf_mode)
     x = _picture_views(_upload(fields, dev), metas)[0]
     return _recon_picture(x, metas[0], *pools,
                           _LevelRunner(plan.H, plan.W, dev))
 
 
-def replay_plans(plans, pool_size=8, device=None):
+def replay_plans(plans, pool_size=8, device=None, wf_mode=None):
     """Replay recorded plans through Phase B over a fresh pool (the
     decoder's zero-initialized 8-frame pool); returns per-picture
-    (y, cb, cr) uint8 numpy planes in decode order."""
+    (y, cb, cr) uint8 numpy planes in decode order. wf_mode: as for
+    ``H265SeqPhaseB``."""
     if not plans:
         return []
-    ph = H265SeqPhaseB(plans[0].H, plans[0].W, pool_size, device=device)
+    ph = H265SeqPhaseB(plans[0].H, plans[0].W, pool_size, device=device,
+                       wf_mode=wf_mode)
     outs = []
     for p in plans:
         y, cb, cr = (ph.run_async_one(p) if p.multi_slice
@@ -1594,10 +1828,14 @@ class H265SeqPhaseB:
     """Device-resident frame pool + batched multi-picture H.265 Phase B:
     each ``run_async`` copies a batch's plans to the device in one
     pinned transfer, then reconstructs its pictures in decode order,
-    each reading the pool [P, H, W] and writing its slot."""
+    each reading the pool [P, H, W] and writing its slot. wf_mode: the
+    intra wavefront's schedule, "tile" (the CUDA kernel on the card) or
+    "level"; None picks ``wf_mode_for`` of each plan's CTB size (tile up
+    to CTB 16)."""
 
-    def __init__(self, H, W, pool_size, device=None):
+    def __init__(self, H, W, pool_size, device=None, wf_mode=None):
         self.device = resolve_device(device)
+        self.wf_mode = _check_wf_mode(wf_mode)
         self.H, self.W = H, W
         self.pool = tuple(
             torch.zeros((pool_size, h, w), dtype=U8, device=self.device)
@@ -1625,7 +1863,7 @@ class H265SeqPhaseB:
         return self._run([plan])
 
     def _run(self, plans):
-        fields, metas = stack_plans(plans)
+        fields, metas = stack_plans(plans, self.wf_mode)
         xs = _picture_views(_upload(fields, self.device), metas)
         outs = tuple(torch.empty((len(plans),) + p.shape[1:], dtype=U8,
                                  device=self.device) for p in self.pool)

@@ -155,11 +155,15 @@ class TurboH265Decoder:
     keep the serial Python path (a reference-bug domain, the chroma base
     derived as luma_offset >> 1). batch: pictures per device dispatch.
     device: where Phase B runs (default: the CUDA device; raises when
-    there is none)."""
+    there is none). wf_mode: the intra wavefront's schedule, "tile" (the
+    CUDA kernel on the card) or "level"; None picks by the CTB size
+    (``wf_mode_for``: tile up to CTB 16)."""
 
-    def __init__(self, data: bytes, batch: int = 8, device=None):
+    def __init__(self, data: bytes, batch: int = 8, device=None,
+                 wf_mode=None):
         self.batch = int(batch)
         self.device = resolve_device(device)
+        self.wf_mode = wf_mode
         self.dec = H265Decoder(device=self.device)
         self.dec.set_data(data)
         self.dec.begin_decode(backend="native", defer_recon=True)
@@ -196,7 +200,8 @@ class TurboH265Decoder:
             geom = (p0.H, p0.W, len(dec.pool))
             if batcher is None or (batcher.H, batcher.W,
                                    batcher.pool[0].shape[0]) != geom:
-                batcher = H265SeqPhaseB(*geom, device=self.device)
+                batcher = H265SeqPhaseB(*geom, device=self.device,
+                                        wf_mode=self.wf_mode)
             return batcher
 
         def dispatch():

@@ -1,10 +1,11 @@
 #pragma once
 // CPU emulation of the CUDA surface that the row-schedule kernels of
-// m2dec_tpu_torch/csrc/h264_wavefront.cu use, for checking their
-// arithmetic without a GPU (see run.py): one CTA of 64 or 32 threads as
-// std::threads in warps of 32, 16 named barriers; __shared__ is static,
-// so one CTA runs at a time and a launch takes every MB row in turn by
-// ticket.
+// m2dec_tpu_torch/csrc/h264_wavefront.cu and the tile kernel of
+// csrc/h265_tile.cu use, for checking their arithmetic without a GPU
+// (see run.py and run_h265_tile.py): one CTA of 64 or 32 threads as
+// std::threads in warps of 32, 16 named barriers (the tile kernel: 256
+// threads, __syncthreads only); __shared__ is static, so one CTA runs at
+// a time and a launch takes every row in turn by ticket.
 #include <atomic>
 #include <barrier>
 #include <chrono>

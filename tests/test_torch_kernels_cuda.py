@@ -2,8 +2,11 @@
 versions, on the card: the four H.264 wavefront kernels (all on the row
 schedule: one launch per pass) on random plans, all-intra and
 zero-strength plans, 20 times over, and on stacks of S streams in one
-launch against S single-stream launches, and the MPEG-2 8x8 IDCT on
-random blocks and on MPEG-2 streams; exact equality (integer decode, tolerance 0). The
+launch against S single-stream launches, the MPEG-2 8x8 IDCT on
+random blocks and on MPEG-2 streams, and the H.265 CTU-tile intra
+wavefront on random op words and on H.265 streams (against its plain
+version and the Python decoder's oracle); exact equality (integer
+decode, tolerance 0). The
 tests marked ``cuda`` skip on a machine without a GPU. CPU tests show
 the kernel dispatch cannot fall back to the plain version."""
 
@@ -14,11 +17,18 @@ import numpy as np
 import pytest
 import torch
 
-from torch_helpers import rand_planes, rand_wavefront_plan, torch_plan
+from torch_helpers import (
+    rand_planes,
+    rand_tile_inputs,
+    rand_wavefront_plan,
+    torch_plan,
+)
 
 from m2dec_tpu_torch import _build
 from m2dec_tpu_torch.codecs.h264 import wavefront as WF
 from m2dec_tpu_torch.codecs.h264 import wavefront_kernels as WK
+from m2dec_tpu_torch.codecs.h265 import reconstruct as R265
+from m2dec_tpu_torch.codecs.h265 import wavefront_kernels as TK
 from m2dec_tpu_torch.kernels import idct_kernels as IK
 
 sys.path.insert(0, str(pathlib.Path(__file__).parent))
@@ -320,7 +330,20 @@ def _run_idct_kernel(monkeypatch):
     assert IK.LAUNCHES == before
 
 
-@pytest.mark.parametrize("kernel", ["wavefront", "idct"])
+def _run_tile_kernel(monkeypatch):
+    calls = []
+    monkeypatch.setattr(R265, "_wavefront_tile_plain",
+                        lambda *a: calls.append(a))
+    H, W = 32, 48
+    y, c, ry, rc, zl, zc = (torch.from_numpy(a).to("meta") for a in
+                            rand_tile_inputs(H, W, 4, 0))
+    before = dict(TK.LAUNCHES)
+    yield lambda: TK.tile_wavefront(y, c, ry, rc, zl, zc, H, W, 4, False)
+    assert not calls
+    assert TK.LAUNCHES == before
+
+
+@pytest.mark.parametrize("kernel", ["wavefront", "idct", "h265_tile"])
 @pytest.mark.parametrize("missing", ["source", "nvcc"])
 def test_kernel_dispatch_never_falls_back(monkeypatch, tmp_path, missing,
                                           kernel):
@@ -333,8 +356,8 @@ def test_kernel_dispatch_never_falls_back(monkeypatch, tmp_path, missing,
     else:
         monkeypatch.setattr(_build, "nvcc_path", _no_nvcc)
         exc = RuntimeError
-    steps = (_run_wavefront_kernels if kernel == "wavefront"
-             else _run_idct_kernel)(monkeypatch)
+    steps = {"wavefront": _run_wavefront_kernels, "idct": _run_idct_kernel,
+             "h265_tile": _run_tile_kernel}[kernel](monkeypatch)
     run = next(steps)
     with pytest.raises(exc):
         run()
@@ -460,3 +483,98 @@ def test_h264dec_turbo_cli_on_card(cuda, tmp_path, monkeypatch):
         assert (tmp_path / "b.out").read_bytes() == want
         assert {k: WK.LAUNCHES[k] - before[k] for k in PASSES} == {
             k: 6 for k in PASSES}
+
+
+# ---------------------------------------------------------------------
+# H.265 CTU-tile intra wavefront
+# ---------------------------------------------------------------------
+
+#: (H, W, ctb_log2, strong_en, density) of the random-word cases: small,
+#: 1080p CTB 16, CTB 32 with strong smoothing, and more CTU rows than
+#: the card holds CTAs (3 * 400 bands: the ticket loop)
+TILE_GEOMS = [(64, 96, 4, False, 0.6), (1088, 1920, 4, False, 0.6),
+              (96, 64, 5, True, 0.6), (256, 384, 5, True, 0.6),
+              (6400, 32, 4, False, 0.05)]
+
+
+def _tile_inputs(H, W, cl2, seed, dev, density=0.6):
+    return [torch.from_numpy(a).to(dev)
+            for a in rand_tile_inputs(H, W, cl2, seed, density)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,cl2,strong,density", TILE_GEOMS)
+def test_tile_kernel_random_words(cuda, H, W, cl2, strong, density):
+    """The kernel against its plain version on the card, on random op
+    words (every mode, sizes up to the slot's, stray pixels), one
+    launch."""
+    y, c, ry, rc, zl, zc = _tile_inputs(H, W, cl2, 3, cuda, density)
+    want = R265._wavefront_tile_plain(y.clone(), c.clone(), ry, rc, zl, zc,
+                                      H, W, cl2, strong)
+    n0 = TK.LAUNCHES["h265_tile"]
+    got = TK.tile_wavefront(y, c, ry, rc, zl, zc, H, W, cl2, strong)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["h265_tile"] == n0 + 1
+    for g, w in zip(got, want):
+        _same(g, w)
+
+
+@pytest.mark.cuda
+def test_tile_kernel_repeat(cuda):
+    """20 launches on one 1080p set of random words, byte-equal each time
+    (the race check of the band handoffs and the stray pixel)."""
+    H, W = 1088, 1920
+    y, c, ry, rc, zl, zc = _tile_inputs(H, W, 4, 8, cuda)
+    first = None
+    for _ in range(20):
+        got = TK.tile_wavefront(y.clone(), c.clone(), ry, rc, zl, zc, H, W,
+                                4, False)
+        torch.cuda.synchronize()
+        if first is None:
+            first = got
+        for g, f in zip(got, first):
+            _same(g, f)
+
+
+def _h265_streams():
+    from streamgen.h265_enc import ALL_MODES, H265StreamGen
+
+    slices3 = H265StreamGen(64, 96, seed=203, qp=30, cbf_prob=0.5,
+                            modes=ALL_MODES, tmvp=1, deblock=1, sao=1,
+                            max_level=1)
+    slices3.slices_per_pic = 3
+    return {
+        "ctb16_ipb": H265StreamGen(
+            96, 64, seed=7, qp=30, cbf_prob=0.5, modes=ALL_MODES, deblock=1,
+            sao=1, max_level=1).generate("IPB"),
+        "ctb32_strong": H265StreamGen(
+            96, 64, seed=22, ctb_log2=5, qp=14, cbf_prob=0.3,
+            modes=ALL_MODES, strong_smoothing=1,
+            split_prob=0.3).generate(2),
+        "slices3": slices3.generate("IPBP"),
+        "tskip_sdh": H265StreamGen(
+            64, 48, seed=32, qp=14, cbf_prob=0.7, modes=ALL_MODES,
+            transform_skip=1, sign_data_hiding=1, split_prob=0.7,
+            nxn_prob=0.8).generate(2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ctb16_ipb", "ctb32_strong", "slices3",
+                                  "tskip_sdh"])
+def test_tile_kernel_streams(cuda, name):
+    """Every picture replayed on the card on the tile schedule (the tile
+    mode forced at CTB 32): one launch per picture, the planes of the
+    plain version (the CPU replay) and of the Python decoder's oracle."""
+    from m2dec_tpu_torch.codecs.h265.headers import H265Decoder
+
+    dec = H265Decoder(device="cpu")
+    dec.set_data(_h265_streams()[name])
+    dec.decode_all(collect_plans=True, keep_oracle=True)
+    n0 = TK.LAUNCHES["h265_tile"]
+    got = R265.replay_plans(dec.plans, device=cuda, wf_mode="tile")
+    assert TK.LAUNCHES["h265_tile"] == n0 + len(dec.plans)
+    want = R265.replay_plans(dec.plans, device="cpu", wf_mode="tile")
+    for k, (p, g, w) in enumerate(zip(dec.plans, got, want)):
+        for c, a, b, o in zip(("y", "cb", "cr"), g, w, p.oracle):
+            assert np.array_equal(a, b), f"picture {k} {c}: != plain"
+            assert np.array_equal(a, o), f"picture {k} {c}: != oracle"

@@ -141,7 +141,8 @@ def test_torch_port_never_imports_jax(tmp_path):
     conftest), the port imports every one of its modules and decodes a
     48x32 H.264 stream (TurboH264Decoder, and twice side by side through
     MultiStreamPhaseB), an 80x48 MPEG-2 stream and a 64x48 H.265 stream
-    (TurboH265Decoder), and runs the h264dec --turbo and m2dec --fast
+    (TurboH265Decoder, on the CTU-tile schedule at its CTB 16: one tile
+    wavefront per picture), and runs the h264dec --turbo and m2dec --fast
     tools in-process; neither jax nor any module of m2dec_tpu is
     loaded."""
     h264 = tmp_path / "s.264"
@@ -183,9 +184,15 @@ def test_torch_port_never_imports_jax(tmp_path):
         "assert len(frames) == 6, len(frames)\n"
         "assert all(np.asarray(f.y).shape == (48, 80) for f in frames)\n"
         "from m2dec_tpu_torch.runtime.turbo import TurboH265Decoder\n"
+        "from m2dec_tpu_torch.codecs.h265 import wavefront_kernels as TK\n"
+        "tiles = []\n"
+        "real = TK.tile_wavefront\n"
+        "TK.tile_wavefront = lambda *a: (tiles.append(1), real(*a))[1]\n"
         f"data = open({str(h265)!r}, 'rb').read()\n"
         "frames = TurboH265Decoder(data, batch=2, device='cpu')"
         ".decode_all()\n"
+        "TK.tile_wavefront = real\n"
+        "assert len(tiles) == 5, len(tiles)\n"
         "assert len(frames) == 5, len(frames)\n"
         "assert [f.cnt for f in frames] == [0, 1, 2, 3, 4], frames\n"
         "assert all(f.y.shape == (48, 64) and f.y.any() for f in frames)\n"

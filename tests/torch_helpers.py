@@ -53,3 +53,50 @@ def torch_plan(P, device="cpu"):
     """numpy plan dict -> int32 torch tensors on ``device``."""
     return {k: torch.as_tensor(np.ascontiguousarray(v), dtype=torch.int32,
                                device=device) for k, v in P.items()}
+
+
+def rand_tile_inputs(H, W, ctb_log2, seed, density=0.6):
+    """Random inputs of the H.265 tile wavefront at a CTB-aligned H x W:
+    the padded int32 planes and residuals of ``_LevelRunner`` (luma
+    [H+33, W+33], cb over cr) and per-CTU z-slot words (zl, zc) as numpy.
+
+    Every op fits its slot (size <= Smax), and its valid counts stay
+    inside what the schedule has reconstructed when it runs: vy ends at
+    the CTU's bottom row, and an op on the CTU's top row has vx ending
+    in the CTU above-right. So any order the schedule allows gives one
+    result. Luma ops may carry the DC stray-pixel bit."""
+    from m2dec_tpu_torch.codecs.h265 import reconstruct as R
+
+    rng = np.random.default_rng(seed)
+    cols, rows = W >> ctb_log2, H >> ctb_log2
+    Hc, Wc = H >> 1, W >> 1
+    planes = []
+    for h, w in ((H + 33, W + 33), (2 * R._CR0(Hc), Wc + 17)):
+        planes.append(rng.integers(0, 256, (h, w)).astype(np.int32))
+        planes.append(rng.integers(-40, 40, (h, w)).astype(np.int32))
+    words = []
+    for luma, cl2 in ((True, ctb_log2), (False, ctb_log2 - 1)):
+        C = 1 << cl2
+        slots = R._zslot_table(cl2)
+        z = np.zeros((cols * rows, len(slots)), np.int32)
+        for ctu in range(cols * rows):
+            for j, (oy, ox, smax) in enumerate(slots):
+                if rng.random() > density:
+                    continue
+                sl2 = int(rng.integers(2, smax.bit_length()))
+                size = 1 << sl2
+                mode = int(rng.integers(0, 35))
+                vx_cap = 2 * C - ox if oy == 0 else 127
+                vx = int(rng.integers(0, min(vx_cap, 2 * size + 4) + 1))
+                if rng.random() < 0.2:
+                    vx = min(vx_cap, 127)
+                vy = int(rng.integers(0, min(C - oy, 2 * size) + 1))
+                y0 = (ctu // cols) * C + oy
+                stray = (luma and rng.random() < 0.3
+                         and y0 + size < (H if luma else Hc))
+                z[ctu, j] = (1 | (2 * stray) | ((sl2 - 2) << R._ZF_SL2)
+                             | (mode << R._ZF_MODE) | (vx << R._ZF_VX)
+                             | (vy << R._ZF_VY))
+        words.append(z)
+    y, ry, c, rc = planes
+    return y, c, ry, rc, words[0], words[1]
