@@ -614,9 +614,12 @@ def h265(dev, smi, procs, step_ms):
     schedules) and its figures (Phase B on both schedules in turns).
     step_ms: one flag handoff between CTAs (phase 7's probe). Returns
     the tile kernel's entry of the kernels line."""
+    import ctypes
+
     import numpy as np
     import torch
 
+    from m2dec_tpu_torch import _build
     from m2dec_tpu_torch.codecs.h264 import wavefront_kernels as WK
     from m2dec_tpu_torch.codecs.h265 import reconstruct as R
     from m2dec_tpu_torch.codecs.h265 import wavefront_kernels as TK
@@ -755,6 +758,16 @@ def h265(dev, smi, procs, step_ms):
         raise RuntimeError(f"the tile kernel differs from its plain version "
                            f"on pictures 0 and 1: max abs err {tile_err}")
     bounds = [tile_bounds(captured[k], step_ms) for k in range(2)]
+    # the longest chain of ops of each picture (luma, chroma), which the
+    # kernel's time follows; the grid and the build's resources
+    chains = [[TK.op_chain(words, a[7] >> a[8], a[6] >> a[8])
+               for words in a[4:6]] for a in captured]
+    grid = ctypes.c_int(0)
+    smem = _build.load_library("h265_tile").h265_tile_grid(
+        plans[0].H, plans[0].W, plans[0].size_log2, ctypes.addressof(grid))
+    ptxas = [ln.split(":", 1)[-1].strip() for ln in
+             _build.LAST_BUILD.get("h265_tile", "").splitlines()
+             if "registers" in ln or "spill" in ln]
     phase(9, f"H.265 tile kernel vs plain on {smi}: pictures 0 (I) and 1 "
              f"(P) byte-equal (max abs err {tile_err}); kernel "
              f"{tile_ms[0]:.4f} and {tile_ms[1]:.4f} ms (CUDA events, "
@@ -763,7 +776,11 @@ def h265(dev, smi, procs, step_ms):
              f"{bounds[0][0]:.5f} and {bounds[1][0]:.5f} ms "
              f"({bounds[0][1]}); dependency floor {bounds[0][2]:.4f} ms "
              f"({(plans[0].H >> plans[0].size_log2) - 1} handoffs x "
-             f"{1e3 * step_ms:.3f} us)")
+             f"{1e3 * step_ms:.3f} us); longest chain of ops [luma, "
+             f"chroma] {chains}, so {1e3 * tile_ms[0] / chains[0][0]:.3f} "
+             f"and {1e3 * tile_ms[1] / chains[1][0]:.3f} us per luma chain "
+             f"op; grid {grid.value} CTAs of two warps, {smem} bytes of "
+             f"dynamic shared memory each; ptxas {ptxas or '(cached)'}")
 
     # the small streams on the card against the Python decoder's oracle,
     # on both schedules (tile forced at CTB 32), and TurboH265Decoder's
@@ -867,7 +884,8 @@ def h265(dev, smi, procs, step_ms):
             "plain_ms": plain_ms, "bound_ms": bounds[0][0],
             "bound_by": bounds[0][1], "library_ms": None,
             "dependency_ms": bounds[0][2], "inter_ms": tile_ms[1],
-            "multistream_launches": None, "stacked4_ms": None}
+            "chain_ops": chains, "multistream_launches": None,
+            "stacked4_ms": None}
 
 
 def make_ps(m2v_name):

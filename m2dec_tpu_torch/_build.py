@@ -43,7 +43,17 @@ LIBRARIES = {
     },
     "h265_tile": {
         "h265_tile_wavefront": [_VP] * 8 + [_INT] * 4 + [_VP],
+        "h265_tile_grid": [_INT, _INT, _INT, _VP],
     },
+}
+
+#: builds of a source with extra nvcc flags, under their own library
+#: name, loaded only by the tools that ask for them (never on the main
+#: path): library -> (source name, extra flags, C entry points)
+VARIANTS = {
+    "h265_tile_probe": ("h265_tile", ("-DH265_TILE_PROBE",), {
+        "h265_tile_wavefront_probe": [_VP] * 9 + [_INT] * 4 + [_VP],
+    }),
 }
 
 _LOCK = threading.Lock()
@@ -65,13 +75,18 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + VARIANTS[name][1] if name in VARIANTS else NVCC_FLAGS
+
+
 def _target(name: str) -> tuple[pathlib.Path, pathlib.Path]:
     """(source, library path) of library ``name``."""
-    src = pathlib.Path(CSRC) / f"{name}.cu"
+    stem = VARIANTS[name][0] if name in VARIANTS else name
+    src = pathlib.Path(CSRC) / f"{stem}.cu"
     if not src.is_file():
         raise FileNotFoundError(f"kernel source missing: {src}")
     tag = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                         + " ".join(_flags(name)).encode()).hexdigest()[:16]
     return src, pathlib.Path(BUILD_DIR) / f"lib{name}_{tag}.so"
 
 
@@ -79,7 +94,7 @@ def _compile(name: str, src: pathlib.Path, out: pathlib.Path) -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}."
                         f"{threading.get_ident()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [nvcc_path(), *_flags(name), "-o", str(tmp), str(src)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(
@@ -105,7 +120,9 @@ def load_library(name: str) -> ctypes.CDLL:
         if lib is not None:
             return lib
         lib = ctypes.CDLL(str(_build(name)))
-        for fn_name, argtypes in LIBRARIES[name].items():
+        entries = (VARIANTS[name][2] if name in VARIANTS
+                   else LIBRARIES[name])
+        for fn_name, argtypes in entries.items():
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

@@ -691,13 +691,14 @@ _ANG_FUSED = _build_ang_fused()
 def _device_tables(device):
     """The constant tables on ``device`` (a few KB), built once per
     device: the transform matrices (float64), the chroma taps and the
-    fused angular table (int64, and int32 for the tile kernel)."""
+    fused angular table (int64). The tile kernel takes its own packing
+    of the angular table (``wavefront_kernels._tile_table``)."""
     def t(a, dtype):
         return torch.as_tensor(np.asarray(a)).to(device=device, dtype=dtype)
 
     out = {f"tmat{k}": t(v, F64) for k, v in _TMAT.items()}
     out.update(dmat=t(_DMAT, F64), ctap=t(_CTAP, I64),
-               ang=t(_ANG_FUSED, I64), ang32=t(_ANG_FUSED, I32))
+               ang=t(_ANG_FUSED, I64))
     return out
 
 

@@ -3,9 +3,12 @@
 without nvcc or a GPU.
 
 The kernel source is compiled with g++ against ``cuda_runtime.h`` here
-(``__syncthreads``, ``__ldcg``, ``__ldg``, the acquire/relaxed flag
-accesses, ``atomicAdd``, clock64): one CTA of 256 threads runs as
-threads and takes every (plane, CTU row) in turn by ticket. Its output
+(``__syncwarp``, the named barriers between the two warps, the warp
+votes and sums, ``__ldcg``, ``__ldg``, the acquire/relaxed flag
+accesses, ``cp.async`` groups applied only at the wait that covers
+them, ``atomicAdd``, clock64): one CTA of two warps runs as 64 threads
+and takes every (plane, CTU row) in turn by ticket, its shared memory
+filled with garbage first. Its output
 is held against the plain version (``reconstruct._wavefront_tile_plain``)
 byte for byte, and every band's progress flag must end at the CTU
 count of a row:
@@ -15,8 +18,9 @@ count of a row:
   pictures): each call of the tile wavefront in
   ``replay_plans(..., device="cpu", wf_mode="tile")`` runs the kernel
   too, and the replayed pictures must equal the Python decoder's oracle;
-* on random op words (``torch_helpers.rand_tile_inputs``) at CTB 16 and
-  32.
+* on random op words (``torch_helpers.rand_tile_inputs``) at CTB 8, 16,
+  32 and 64, and at CTB 16 with every op 4x4 and with every luma op a
+  DC op carrying the stray pixel.
 
 It checks the kernel's arithmetic, its slot table and its addressing; races
 between CTAs, the L1/L2 behaviour and the compiler for sm_90a show only
@@ -48,7 +52,8 @@ from m2dec_tpu_torch.codecs.h265.headers import H265Decoder  # noqa: E402
 SOURCE = REPO / "m2dec_tpu_torch" / "csrc" / "h265_tile.cu"
 BUILD = REPO / "build" / "cuda_emu"
 
-#: the host side: the kernel on one CTA of THREADS threads
+#: the host side: the kernel on one CTA of THREADS threads (two warps),
+#: its dynamic shared memory filled with garbage first
 HARNESS = r'''
 }  // namespace
 thread_local dim3e threadIdx;
@@ -56,16 +61,26 @@ dim3e blockIdx, blockDim;
 std::barrier<> *emu_wbar[2];
 std::barrier<> *emu_nbar[16];
 int emu_xch[2][32];
+thread_local std::vector<std::pair<int*, const int*>> emu_cp_open;
+thread_local std::deque<std::vector<std::pair<int*, const int*>>>
+    emu_cp_groups;
+int* emu_smem;
 #include <thread>
-#include <vector>
 extern "C" void emu_h265_tile(void* y, void* c, const void* ry,
     const void* rc, const void* zl, const void* zc, const void* ang,
     void* progress, int H, int W, int ctb_log2, int strong_en) {
   const TileArgs a = {(int*)y, (int*)c, (const int*)ry, (const int*)rc,
     (const int*)zl, (const int*)zc, (const int*)ang, (int*)progress, H, W,
     ctb_log2, strong_en};
-  std::barrier<> cta(THREADS);
+  std::vector<int> smem(smem_ints(ctb_log2, W >> ctb_log2), 0x5a5a5a5a);
+  emu_smem = smem.data();
+  std::barrier<> w0(32), w1(32), cta(THREADS), ready(THREADS),
+      done(THREADS);
+  emu_wbar[0] = &w0;
+  emu_wbar[1] = &w1;
   emu_nbar[0] = &cta;
+  emu_nbar[BAR_READY] = &ready;
+  emu_nbar[BAR_DONE] = &done;
   std::vector<std::thread> th;
   for (int l = 0; l < THREADS; ++l)
     th.emplace_back([&, l] { threadIdx = {l, 0, 0}; tile_kernel(a); });
@@ -73,11 +88,28 @@ extern "C" void emu_h265_tile(void* y, void* c, const void* ry,
 }
 '''
 
-#: inline PTX -> the emulation's calls
-PTX = [(r'asm volatile\("ld\.acquire.*?"memory"\);',
-        'v = __atomic_load_n(p, __ATOMIC_ACQUIRE);'),
+#: inline PTX and the dynamic shared memory -> the emulation's calls
+PTX = [(r'asm volatile\("ld\.relaxed.*?"memory"\);',
+        'v = __atomic_load_n(p, __ATOMIC_RELAXED);'),
+       (r'asm volatile\("fence\.acq_rel\.gpu;" ::: "memory"\);',
+        'std::atomic_thread_fence(std::memory_order_acq_rel);'),
+       (r'const unsigned d = \(unsigned\)__cvta_generic_to_shared\(dst\);'
+        r'\s*asm volatile\("cp\.async\.cg.*?"memory"\);',
+        'for (int q = 0; q < 4; ++q) emu_cp_async(dst + q, src + q);'),
        (r'asm volatile\("st\.relaxed.*?"memory"\);',
-        '__atomic_store_n(p, v, __ATOMIC_RELAXED);')]
+        '__atomic_store_n(p, v, __ATOMIC_RELAXED);'),
+       (r'const unsigned d = \(unsigned\)__cvta_generic_to_shared\(dst\);'
+        r'\s*asm volatile\("cp\.async\.ca.*?"memory"\);',
+        'emu_cp_async(dst, src);'),
+       (r'asm volatile\("cp\.async\.commit_group;" ::: "memory"\);',
+        'emu_cp_commit();'),
+       (r'asm volatile\("cp\.async\.wait_group 4;" ::: "memory"\);',
+        'emu_cp_wait(4);'),
+       (r'asm volatile\("cp\.async\.wait_group 0;" ::: "memory"\);',
+        'emu_cp_wait(0);'),
+       (r'asm volatile\("bar\.sync.*?"memory"\);', 'emu_bar_sync(id);'),
+       (r'asm volatile\("bar\.arrive.*?"memory"\);', 'emu_bar_arrive(id);'),
+       (r'extern __shared__ int smem\[\];', 'int* smem = emu_smem;')]
 
 #: the streams: (generator keywords, size, pictures)
 STREAMS = {
@@ -94,6 +126,15 @@ STREAMS = {
                            tmvp=1, deblock=1, sao=1, max_level=1),
                       (64, 96), "IPBP"),
 }
+
+#: the random-word sets: (H, W, ctb_log2, strong_en, rand_tile_inputs
+#: keywords)
+RANDOM = [(64, 96, 4, False, {}), (48, 160, 4, False, {}),
+          (96, 64, 5, True, {}), (64, 128, 5, False, {}),
+          (32, 64, 3, False, {}), (48, 40, 3, False, {}),
+          (128, 192, 6, True, {}), (64, 128, 6, False, {}),
+          (64, 96, 4, False, dict(density=1.0, sl2_max=2)),
+          (64, 96, 4, False, dict(modes=(1,), stray=1.0))]
 
 
 def build():
@@ -122,8 +163,7 @@ class Checker:
 
     def __init__(self, lib):
         self.lib = lib
-        self.ang = torch.from_numpy(
-            np.ascontiguousarray(R._ANG_FUSED, np.int32))
+        self.ang = torch.from_numpy(TK._tile_table_np())
         self.calls = self.bad = 0
 
     def __call__(self, y, c, ry, rc, zl, zc, H, W, ctb_log2, strong_en):
@@ -165,11 +205,10 @@ def main():
         print(f"{name}: {check.calls - n0} pictures through the kernel, "
               f"{wrong} planes != oracle")
         bad += wrong
-    for H, W, cl2, strong in ((64, 96, 4, False), (48, 160, 4, False),
-                              (96, 64, 5, True), (64, 128, 5, False)):
+    for H, W, cl2, strong, kw in RANDOM:
         for seed in (1, 2):
             y, c, ry, rc, zl, zc = (torch.from_numpy(a) for a in
-                                    rand_tile_inputs(H, W, cl2, seed))
+                                    rand_tile_inputs(H, W, cl2, seed, **kw))
             check(y, c, ry, rc, zl, zc, H, W, cl2, strong)
     print(f"random words: {check.calls} calls in all")
     bad += check.bad

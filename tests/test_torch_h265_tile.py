@@ -8,7 +8,9 @@ schedule equal to the Python decoder's oracle planes (the frames the
 JAX package's tile path is held to in tests/test_h265_tile.py), and
 ``TurboH265Decoder(device="cpu")`` taking the tile schedule by default
 at CTB 16 and the level schedule at CTB 32, with the JAX package's
-serial frames. Every comparison is exact; no JAX graph is compiled.
+serial frames, and the chain of ops the kernel's time follows
+(``op_chain``) against a walk of the dependency. Every comparison is
+exact; no JAX graph is compiled.
 The kernel itself is held to the plain version on the card in
 tests/test_torch_kernels_cuda.py."""
 
@@ -18,6 +20,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import torch_helpers  # noqa: F401  (pins torch to one thread)
 
@@ -146,6 +149,44 @@ def test_wf_mode_for_equal(monkeypatch, ctb_log2):
 def test_wf_mode_checked():
     with pytest.raises(ValueError):
         R.H265SeqPhaseB(64, 64, 2, device="cpu", wf_mode="diagonal")
+
+
+def _longest_path(counts):
+    """The most ops on any path of the tile dependency (CTU (cy, cx) after
+    (cy, cx - 1) and (cy - 1, min(cx + 1, cols - 1))), by a memoised walk
+    over each CTU's predecessors."""
+    rows, cols = counts.shape
+    memo = {}
+
+    def ending_at(cy, cx):
+        if (cy, cx) not in memo:
+            before = [ending_at(cy, cx - 1)] if cx else []
+            if cy:
+                before.append(ending_at(cy - 1, min(cx + 1, cols - 1)))
+            memo[cy, cx] = int(counts[cy, cx]) + max(before, default=0)
+        return memo[cy, cx]
+
+    return max(ending_at(cy, cx) for cy in range(rows) for cx in range(cols))
+
+
+@pytest.mark.parametrize("rows,cols,seed", [(2, 3, -1), (5, 7, 1),
+                                            (1, 6, 2), (6, 1, 3)])
+def test_op_chain(rows, cols, seed):
+    """wavefront_kernels.op_chain (the chain of ops chip_smoke.py and the
+    split probe report) against a walk of the dependency, on words with
+    counted ops; (2, 3) by hand: 1 + 2 + 4 + 5 + 6 = 18."""
+    if seed < 0:
+        counts = np.arange(1, 7).reshape(2, 3)
+    else:
+        counts = np.random.default_rng(seed).integers(0, 9, (rows, cols))
+    n_slots = 16
+    words = np.zeros((rows * cols, n_slots), np.int32)
+    for i, n in enumerate(counts.reshape(-1)):
+        words[i, np.random.default_rng(i).permutation(n_slots)[:n]] = 0x31
+    words[0, -1] |= 0x30  # no used bit: not an op
+    want = 18 if seed < 0 else _longest_path(counts)
+    assert TK.op_chain(words, cols, rows) == want
+    assert TK.op_chain(torch.from_numpy(words), cols, rows) == want
 
 
 # ----------------------------------------------------- whole pictures --

@@ -10,6 +10,7 @@ decode, tolerance 0). The
 tests marked ``cuda`` skip on a machine without a GPU. CPU tests show
 the kernel dispatch cannot fall back to the plain version."""
 
+import ctypes
 import pathlib
 import sys
 
@@ -489,26 +490,38 @@ def test_h264dec_turbo_cli_on_card(cuda, tmp_path, monkeypatch):
 # H.265 CTU-tile intra wavefront
 # ---------------------------------------------------------------------
 
-#: (H, W, ctb_log2, strong_en, density) of the random-word cases: small,
-#: 1080p CTB 16, CTB 32 with strong smoothing, and more CTU rows than
-#: the card holds CTAs (3 * 400 bands: the ticket loop)
-TILE_GEOMS = [(64, 96, 4, False, 0.6), (1088, 1920, 4, False, 0.6),
-              (96, 64, 5, True, 0.6), (256, 384, 5, True, 0.6),
-              (6400, 32, 4, False, 0.05)]
+#: (H, W, ctb_log2, strong_en, rand_tile_inputs keywords) of the
+#: random-word cases: small, 1080p CTB 16, CTB 32 with strong smoothing,
+#: more CTU rows than the card holds CTAs (3 * 400 bands: the ticket
+#: loop), the ends of the CTB range the wrapper takes: CTB 8 and CTB 64
+#: (16 KB of int32 per luma CTU, a window over the 48 KB static limit);
+#: at 1080p CTB 16 every slot holding a 4x4 op (the I picture's mix at
+#: its worst: the longest chain of ops), and every luma op a DC op
+#: carrying the stray pixel (into the window, and into the band below
+#: at a CTU's bottom row)
+TILE_GEOMS = [(64, 96, 4, False, {}), (1088, 1920, 4, False, {}),
+              (96, 64, 5, True, {}), (256, 384, 5, True, {}),
+              (6400, 32, 4, False, dict(density=0.05)),
+              (64, 96, 3, False, {}), (256, 384, 3, False, {}),
+              (128, 192, 6, True, {}), (256, 384, 6, True, {}),
+              (1088, 1920, 4, False, dict(density=1.0, sl2_max=2)),
+              (256, 384, 4, False, dict(modes=(1,), stray=1.0))]
+TILE_IDS = ["-".join(str(v) for v in g[:4]) + "-" + "-".join(
+    f"{k}={v}" for k, v in g[4].items()) for g in TILE_GEOMS]
 
 
-def _tile_inputs(H, W, cl2, seed, dev, density=0.6):
+def _tile_inputs(H, W, cl2, seed, dev, **kw):
     return [torch.from_numpy(a).to(dev)
-            for a in rand_tile_inputs(H, W, cl2, seed, density)]
+            for a in rand_tile_inputs(H, W, cl2, seed, **kw)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H,W,cl2,strong,density", TILE_GEOMS)
-def test_tile_kernel_random_words(cuda, H, W, cl2, strong, density):
+@pytest.mark.parametrize("H,W,cl2,strong,kw", TILE_GEOMS, ids=TILE_IDS)
+def test_tile_kernel_random_words(cuda, H, W, cl2, strong, kw):
     """The kernel against its plain version on the card, on random op
     words (every mode, sizes up to the slot's, stray pixels), one
     launch."""
-    y, c, ry, rc, zl, zc = _tile_inputs(H, W, cl2, 3, cuda, density)
+    y, c, ry, rc, zl, zc = _tile_inputs(H, W, cl2, 3, cuda, **kw)
     want = R265._wavefront_tile_plain(y.clone(), c.clone(), ry, rc, zl, zc,
                                       H, W, cl2, strong)
     n0 = TK.LAUNCHES["h265_tile"]
@@ -517,6 +530,47 @@ def test_tile_kernel_random_words(cuda, H, W, cl2, strong, density):
     assert TK.LAUNCHES["h265_tile"] == n0 + 1
     for g, w in zip(got, want):
         _same(g, w)
+
+
+@pytest.mark.cuda
+def test_tile_kernel_grid(cuda):
+    """The grid holds every (plane, band) of a 1080p picture at once at
+    CTB 16 (3 x 68 CTAs) and CTB 64 (3 x 17)."""
+    lib = _build.load_library("h265_tile")
+    for cl2, bands in ((4, 204), (6, 51)):
+        grid = ctypes.c_int(0)
+        smem = lib.h265_tile_grid(1088, 1920, cl2, ctypes.addressof(grid))
+        assert smem > 0 and grid.value == bands, (cl2, smem, grid.value)
+
+
+@pytest.mark.cuda
+def test_tile_kernel_probe_build(cuda):
+    """The probe build (-DH265_TILE_PROBE, tools/probe_h265_tile_split.py)
+    writes the plain version's bytes on random words, counts every op, and
+    the spans of the warp that runs the ops add up to at most each band's
+    cycles."""
+    H, W = 256, 384
+    y, c, ry, rc, zl, zc = _tile_inputs(H, W, 4, 6, cuda)
+    want = R265._wavefront_tile_plain(y.clone(), c.clone(), ry, rc, zl, zc,
+                                      H, W, 4, False)
+    lib = _build.load_library("h265_tile_probe")
+    rows = H >> 4
+    probe = torch.zeros((3 * rows, 16), dtype=torch.int64, device=cuda)
+    progress = TK._band_progress(cuda, rows)
+    ang = TK._tile_table(cuda)
+    err = lib.h265_tile_wavefront_probe(
+        *(t.data_ptr() for t in (y, c, ry, rc, zl, zc)), ang.data_ptr(),
+        progress.data_ptr(), probe.data_ptr(), H, W, 4, 0,
+        torch.cuda.current_stream(cuda).cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    for g, w in zip((y, c), want):
+        _same(g, w)
+    # columns: 4 spans of the op warp, 8 of the data warp, then the
+    # band's ops, cycles, nanoseconds and start
+    p = probe.cpu()
+    assert (p[:, :12] >= 0).all() and (p[:, :4].sum(1) <= p[:, 13]).all()
+    assert p[:, 12].sum() == int((zl & 1).sum()) + 2 * int((zc & 1).sum())
 
 
 @pytest.mark.cuda

@@ -55,7 +55,8 @@ def torch_plan(P, device="cpu"):
                                device=device) for k, v in P.items()}
 
 
-def rand_tile_inputs(H, W, ctb_log2, seed, density=0.6):
+def rand_tile_inputs(H, W, ctb_log2, seed, density=0.6, sl2_max=5,
+                     modes=None, stray=0.3):
     """Random inputs of the H.265 tile wavefront at a CTB-aligned H x W:
     the padded int32 planes and residuals of ``_LevelRunner`` (luma
     [H+33, W+33], cb over cr) and per-CTU z-slot words (zl, zc) as numpy.
@@ -64,7 +65,10 @@ def rand_tile_inputs(H, W, ctb_log2, seed, density=0.6):
     inside what the schedule has reconstructed when it runs: vy ends at
     the CTU's bottom row, and an op on the CTU's top row has vx ending
     in the CTU above-right. So any order the schedule allows gives one
-    result. Luma ops may carry the DC stray-pixel bit."""
+    result. A slot holds an op with probability ``density``, of size up
+    to 1 << sl2_max, its mode drawn from ``modes`` (default: all 35);
+    luma ops carry the DC stray-pixel bit with probability ``stray``
+    (where the pixel stays inside the picture)."""
     from m2dec_tpu_torch.codecs.h265 import reconstruct as R
 
     rng = np.random.default_rng(seed)
@@ -83,18 +87,20 @@ def rand_tile_inputs(H, W, ctb_log2, seed, density=0.6):
             for j, (oy, ox, smax) in enumerate(slots):
                 if rng.random() > density:
                     continue
-                sl2 = int(rng.integers(2, smax.bit_length()))
+                sl2 = int(rng.integers(2, min(smax.bit_length(),
+                                              sl2_max + 1)))
                 size = 1 << sl2
-                mode = int(rng.integers(0, 35))
+                mode = int(rng.integers(0, 35) if modes is None
+                           else rng.choice(modes))
                 vx_cap = 2 * C - ox if oy == 0 else 127
                 vx = int(rng.integers(0, min(vx_cap, 2 * size + 4) + 1))
                 if rng.random() < 0.2:
                     vx = min(vx_cap, 127)
                 vy = int(rng.integers(0, min(C - oy, 2 * size) + 1))
                 y0 = (ctu // cols) * C + oy
-                stray = (luma and rng.random() < 0.3
-                         and y0 + size < (H if luma else Hc))
-                z[ctu, j] = (1 | (2 * stray) | ((sl2 - 2) << R._ZF_SL2)
+                dc1 = (luma and rng.random() < stray
+                       and y0 + size < (H if luma else Hc))
+                z[ctu, j] = (1 | (2 * dc1) | ((sl2 - 2) << R._ZF_SL2)
                              | (mode << R._ZF_MODE) | (vx << R._ZF_VX)
                              | (vy << R._ZF_VY))
         words.append(z)
