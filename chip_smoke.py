@@ -17,7 +17,12 @@ Drives the port's two main paths at 1920x1088, each on the bench's
   kernel launch per picture (it replaces an XLA scan: H.265 has no TPU
   kernel), held against the port's CPU Phase B on the level schedule,
   the kernel against its plain version, and four small streams against
-  the Python decoder's oracle on both schedules.
+  the Python decoder's oracle on both schedules;
+* the multi-device steps of ``parallel.mesh`` (phase 11) on the plans
+  above: the H.264 stream in 4 MB-row bands, the H.264, H.265 and
+  MPEG-2 pictures as GOP shards, the DPB page exchange at 1920x1088, on
+  shards in this process on the one card, and the GOP step once through
+  a world-size-1 NCCL process group.
 
 Then it holds each kernel against its plain PyTorch version on the card,
 each path against its plain path, against a reference (the numpy plan
@@ -389,7 +394,8 @@ def multi_stream(dev, smi, procs, data, kern, geom):
     stack that phase 3 verified) and each run must launch each wavefront
     kernel once per picture step, before anything is timed. Returns
     (launches per S, {kernel: [stacked ms at S = 4, one stream's ms]} on
-    picture step 0)."""
+    picture step 0, the seed-43 stream's plans, the per-stream checksums
+    of the two sources)."""
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -523,7 +529,7 @@ def multi_stream(dev, smi, procs, data, kern, geom):
             phase(8, f"Phase B split at {S} stream{'s' * (S > 1)} on {smi}, "
                      f"ms per picture step, a synchronize around each stage: "
                      + json.dumps(split))
-    return launches, stacked_ms
+    return launches, stacked_ms, dec2.plans, want
 
 
 def h265_split(ph, plans):
@@ -613,7 +619,8 @@ def h265(dev, smi, procs, step_ms):
     four small streams against the Python decoder's oracle on both
     schedules) and its figures (Phase B on both schedules in turns).
     step_ms: one flag handoff between CTAs (phase 7's probe). Returns
-    the tile kernel's entry of the kernels line."""
+    ((plans, (H, W, pool size), per-picture checksums of the verified
+    batch), the tile kernel's entry of the kernels line)."""
     import ctypes
 
     import numpy as np
@@ -878,14 +885,16 @@ def h265(dev, smi, procs, step_ms):
              f"{time.perf_counter() - t0:.1f} s")
     took = time.perf_counter() - t_phase
     phase(9, f"H.265 phase took {took:.1f} s on {smi}")
-    return {"name": "h265_tile", "route": "cuda", "source": H265_SOURCE,
-            "replaces": H265_REPLACES, "launches": launches["h265_tile"],
-            "max_abs_err": max(tile_err), "ms": tile_ms[0],
-            "plain_ms": plain_ms, "bound_ms": bounds[0][0],
-            "bound_by": bounds[0][1], "library_ms": None,
-            "dependency_ms": bounds[0][2], "inter_ms": tile_ms[1],
-            "chain_ops": chains, "multistream_launches": None,
-            "stacked4_ms": None}
+    verified = (plans, geom, frame_checksums(*card).cpu())
+    return verified, {
+        "name": "h265_tile", "route": "cuda", "source": H265_SOURCE,
+        "replaces": H265_REPLACES, "launches": launches["h265_tile"],
+        "max_abs_err": max(tile_err), "ms": tile_ms[0],
+        "plain_ms": plain_ms, "bound_ms": bounds[0][0],
+        "bound_by": bounds[0][1], "library_ms": None,
+        "dependency_ms": bounds[0][2], "inter_ms": tile_ms[1],
+        "chain_ops": chains, "multistream_launches": None,
+        "stacked4_ms": None}
 
 
 def make_ps(m2v_name):
@@ -1088,6 +1097,400 @@ def entry_points(dev, smi, procs, data, m2data, h264_cks, m2_cks):
     took = time.perf_counter() - t_phase
     phase(10, f"entry points took {took:.1f} s on {smi}")
     return cli_launches, took
+
+
+def dense_plan(plan):
+    """A native Phase A plan as a plan object that the dense consumers
+    (``reconstruct_plan_torch``, the mesh steps) take: its tensors
+    (``_PLAN_KEYS``) with the coefficient blocks that its coded map marks
+    as not written set to 0. ``plan_alloc="empty"`` leaves them
+    uninitialised, since the wire packer reads only the coded ones
+    (``h264parse.cpp`` ``for_coded_luma``: bit b of bits 0..15 is luma
+    block b, 16 or 64 coefficients wide; bit 16 + k is chroma block k of
+    16)."""
+    import types
+
+    import numpy as np
+
+    from m2dec_tpu_torch.codecs.h264.plan_host import _PLAN_KEYS
+
+    c = plan.coded.astype(np.int64)[:, None]
+    wide = ((plan.t8x8 != 0) | (plan.kind == 2))[:, None]
+    pos = np.arange(256)[None]
+    luma = (c >> np.where(wide, pos // 64, pos // 16)) & 1
+    chroma = (c >> (16 + np.arange(128)[None] // 16)) & 1
+    out = types.SimpleNamespace(
+        **{k: getattr(plan, k) for k in _PLAN_KEYS}, mb_w=plan.mb_w,
+        mb_h=plan.mb_h, n=plan.n, cur_idx=plan.cur_idx, pcm=plan.pcm,
+        used_slots=plan.used_slots)
+    out.coef_luma = np.where(luma != 0, plan.coef_luma, 0)
+    out.coef_chroma = np.where(chroma.reshape(plan.coef_chroma.shape) != 0,
+                               plan.coef_chroma, 0)
+    return out
+
+
+def mesh_phase(dev, smi, h264, h265_verified, m2, t_start):
+    """Phase 11: the port's multi-device decode (``parallel.mesh``) on the
+    card, on the plans and verified checksums of the earlier phases: the
+    1080p H.264 stream's 12 pictures as 4 MB-row bands; the two H.264
+    streams of phase 8 as 4 GOPs on 2 shards; the 1080p H.265 GOP of
+    phase 9 on 2 shards; phase 5's 12 MPEG-2 pictures on 2 shards; the
+    DPB page exchange at 1920x1088 on 4 shards; and the GOP step once
+    through a world-size-1 NCCL process group. The shards run in this
+    process on the one card (``InProcessMesh``): NCCL refuses two ranks
+    on one GPU. Each step's output must equal the earlier phases'
+    single-device checksums, and each prints its ms/picture beside the
+    single-device path's, in turns, and its launches (counts set to 0
+    just before the checked run). Returns {kernel: {step: launches}}."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from m2dec_tpu_torch.codecs.h264 import plan_host as host
+    from m2dec_tpu_torch.codecs.h264 import reconstruct as R
+    from m2dec_tpu_torch.codecs.h264 import wavefront_kernels as WK
+    from m2dec_tpu_torch.codecs.h264.decoder import Frame
+    from m2dec_tpu_torch.codecs.h264.plan import PicturePlan
+    from m2dec_tpu_torch.codecs.h265 import wavefront_kernels as TK
+    from m2dec_tpu_torch.codecs.h265.reconstruct import H265SeqPhaseB
+    from m2dec_tpu_torch.codecs.mpeg2.reconstruct import Mpeg2SeqPhaseB
+    from m2dec_tpu_torch.kernels import idct_kernels as IK
+    from m2dec_tpu_torch.parallel import mesh as M
+    from m2dec_tpu_torch.runtime.golden import frame_checksums, host_checksum
+
+    t_phase = time.perf_counter()
+    sync = torch.cuda.synchronize
+    plans, n_frames, geom, pic_cks, plans2, stream_cks = h264
+    mb_w, mb_h, pool = geom
+    kernels = (*ROW_KERNELS, "idct8x8", "h265_tile")
+    launches = {k: {} for k in kernels}
+
+    def mesh(n):
+        return M.make_mesh(n, in_process=True, device=dev)
+
+    def counted(name, fn, want):
+        """fn() with every count at 0 just before it; its launches must be
+        ``want`` ({kernel: n}, 0 for the others)."""
+        WK.reset_launch_counts()
+        IK.reset_launch_counts()
+        TK.reset_launch_counts()
+        out = fn()
+        sync()
+        got = {**WK.LAUNCHES, **IK.LAUNCHES, **TK.LAUNCHES}
+        bad = {k: got[k] for k in kernels if got[k] != want.get(k, 0)}
+        if bad:
+            raise RuntimeError(f"{name}: launches {bad}, want {want}")
+        for k in kernels:
+            launches[k][name] = got[k]
+        return out
+
+    def turns(fns, reps=2):
+        """Median seconds of each of the two fns, run in turns a b b a."""
+        secs = ([], [])
+        for k in range(2 * reps):
+            j = (k + k // 2) % 2
+            sync()
+            t = time.perf_counter()
+            fns[j]()
+            sync()
+            secs[j].append(time.perf_counter() - t)
+        return [statistics.median(v) for v in secs]
+
+    def same_cks(name, outs, want):
+        got = frame_checksums(*outs).cpu()
+        if not torch.equal(got, want):
+            bad = [i for i in range(len(want))
+                   if not torch.equal(got[i], want[i])]
+            raise RuntimeError(f"{name}: pictures {bad} differ from the "
+                               f"single-device checksums")
+
+    def report(name, n, secs, single, extra):
+        step_ms, one_ms = (1e3 * s / n for s in secs)
+        used = {k: v[name] for k, v in launches.items() if v.get(name)}
+        phase(11, f"{name} on {smi}: {step_ms:.3f} ms/picture, "
+                  f"{single} {one_ms:.3f} ms/picture (median of 2 each, "
+                  f"in turns, host clock to a synchronize); {extra}; "
+                  f"launches {json.dumps(used)}")
+
+    # -- the H.264 band step: 12 pictures as 4 MB-row bands --------------
+    nb = 4
+    steps = {i8: M.h264_tile_step(mesh(nb), mb_w, mb_h, has_i8=i8)
+             for i8 in (False, True)}
+
+    dplans = [dense_plan(p) for p in plans]
+
+    def band_run(check=False):
+        """The 12 pictures in decode order through the band step, each
+        with the reference pictures compacted to its used slots (as
+        reconstruct_plan_torch passes them); host frames as the pool."""
+        frames = [Frame(mb_w * 16, mb_h * 16) for _ in range(n_frames)]
+        for b, plan in enumerate(dplans):
+            slots = plan.used_slots() or [0]
+            remap = np.zeros(n_frames + 1, np.int32)
+            remap[slots] = np.arange(len(slots))
+            tiled = M.h264_tile_plan(plan, nb)
+            tiled["slot"] = np.where(tiled["slot"] >= 0, remap[np.clip(
+                tiled["slot"], 0, n_frames)], -1).astype(np.int32)
+            refs = [np.stack([getattr(frames[s], k) for s in slots])
+                    for k in ("y", "cb", "cr")]
+            has_i8 = R._plan_flags(plan.kind, plan.t8x8, plan.deb_str,
+                                   plan.deb_str4)[0]
+            out = steps[has_i8](tiled, *refs)
+            if check:
+                same_cks(f"band step picture {b}", [o[None] for o in out],
+                         pic_cks[b:b + 1])
+            f = frames[plan.cur_idx]
+            for pl, o in zip(("y", "cb", "cr"), out):
+                getattr(f, pl)[:] = o.cpu().numpy()
+
+    def single_run(check=False):
+        """The same pictures through reconstruct_plan_torch."""
+        frames = [Frame(mb_w * 16, mb_h * 16) for _ in range(n_frames)]
+        for b, plan in enumerate(dplans):
+            R.reconstruct_plan_torch(plan, frames, device=dev)
+            f = frames[plan.cur_idx]
+            if check and not np.array_equal(host_checksum(f.y, f.cb, f.cr),
+                                            pic_cks[b].numpy()):
+                raise RuntimeError(f"reconstruct_plan_torch picture {b} "
+                                   f"differs from phase 3's checksum")
+
+    single_run(check=True)
+
+    counted("h264_tile_step", lambda: band_run(check=True),
+            {k: nb * len(plans) for k in ROW_KERNELS})
+    report("h264_tile_step", len(plans), turns((band_run, single_run)),
+           "reconstruct_plan_torch",
+           f"{len(plans)} pictures of {W}x{H} as {nb} bands of "
+           f"{mb_h // nb} MB rows, each equal to phase 3's checksum")
+
+    # the band step's time by stage: one run, a synchronize around each
+    secs = {}
+
+    def timed(key, fn):
+        def wrapper(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync()
+            secs[key] = secs.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return wrapper
+
+    patches = [(R, "_residuals", "residual"), (R, "inter_pass", "MC"),
+               *((WK, k, k) for k in ROW_KERNELS),
+               (M.InProcessMesh, "shift", "halo hops"),
+               (M, "h264_tile_plan", "host plan split")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, key in patches:
+        setattr(obj, name, timed(key, getattr(obj, name)))
+    plain_steps, steps = steps, {k: timed("step", v)
+                                 for k, v in steps.items()}
+    try:
+        sync()
+        t0 = time.perf_counter()
+        band_run()
+        sync()
+        total = time.perf_counter() - t0
+    finally:
+        steps = plain_steps
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    inner = sum(v for k, v in secs.items() if k not in ("step",
+                                                         "host plan split"))
+    secs["rest of the step"] = secs.pop("step") - inner
+    secs["outside the step"] = (total - secs["rest of the step"] - inner
+                                - secs["host plan split"])
+    phase(11, f"h264_tile_step split on {smi}, ms per picture, a "
+              f"synchronize around each stage (the four bands' sum; the "
+              f"rest of the step: plan upload, assembly, halo rows; outside: "
+              f"the references' compaction and the host pool): "
+              + json.dumps({k: round(1e3 * v / len(plans), 3)
+                            for k, v in secs.items()}))
+
+    # -- the H.264 GOP step: phase 8's two streams as 4 GOPs, 2 shards ---
+    gops = [plans, plans2, plans, plans2]
+    G, N = len(gops), len(plans)
+    dense = {id(p): d for p, d in zip(plans, dplans)}
+    dense.update((id(p), dense_plan(p)) for p in plans2)
+    stacked = {k: np.stack([np.stack([getattr(dense[id(p)], k) for p in g])
+                            for g in gops]) for k in host._PLAN_KEYS}
+    cur = np.zeros((G, N), np.int32)
+    for g, gp in enumerate(gops):
+        host._remap_batch(stacked["slot"][g], cur[g], gp,
+                          host._DevSlotMap(pool))
+    aux = host._derive_mc_aux([stacked["slot"][g] for g in range(G)], pool,
+                              mb_w, mb_h)
+    stacked["mc_used"] = np.stack([a[0] for a in aux])
+    stacked["mc_bi"] = np.stack([a[1] for a in aux])
+    pools = tuple(np.zeros((G, pool, h, w), np.uint8)
+                  for h, w in ((H, W), (H // 2, W // 2), (H // 2, W // 2)))
+
+    def same_gops(name, outs):
+        for g in range(G):
+            got = R.MultiStreamPhaseB.checksums([tuple(o[g] for o in outs)])
+            if not np.array_equal(got[0], stream_cks[g % 2]):
+                raise RuntimeError(f"{name}: GOP {g} differs from phase 8's "
+                                   f"checksum")
+
+    gop_step = M.h264_gop_step(mesh(2), mb_w, mb_h)
+    _, outs = counted("h264_gop_step",
+                      lambda: gop_step(*pools, stacked, cur),
+                      {k: 2 * N for k in ROW_KERNELS})
+    same_gops("h264_gop_step", outs)
+    multi = R.MultiStreamPhaseB(G, *geom, device=dev)
+
+    def multi_run():
+        multi.reset()
+        multi.run(gops)
+
+    report("h264_gop_step", G * N, turns((
+        lambda: gop_step(*pools, stacked, cur), multi_run)),
+        "MultiStreamPhaseB at S = 4",
+        f"{G} GOPs of {N} pictures (seeds {SEED}, {SEED2}, {SEED}, "
+        f"{SEED2}) on 2 shards, dense plan tensors with the dense-MC aux, "
+        f"each GOP equal to phase 8's checksum")
+
+    # -- the H.265 GOP step: phase 9's GOP on each of 2 shards -----------
+    plans265, (H5, W5, pool5), cks265 = h265_verified
+    cl2 = plans265[0].size_log2
+    pools265 = tuple(np.zeros((2, pool5, h, w), np.uint8)
+                     for h, w in ((H5, W5), (H5 // 2, W5 // 2),
+                                  (H5 // 2, W5 // 2)))
+    step265 = M.h265_gop_step(mesh(2), H5, W5, cl2)
+    _, outs = counted("h265_gop_step",
+                      lambda: step265(*pools265, [plans265, plans265]),
+                      {"h265_tile": 2 * len(plans265)})
+    for g in range(2):
+        same_cks(f"h265_gop_step GOP {g}", [o[g] for o in outs], cks265)
+    ph265 = H265SeqPhaseB(H5, W5, pool5, device=dev)
+    report("h265_gop_step", 2 * len(plans265), turns((
+        lambda: step265(*pools265, [plans265, plans265]),
+        lambda: [ph265.run_async(plans265) for _ in range(2)])),
+        "H265SeqPhaseB on the 2 GOPs in turn",
+        f"phase 9's {W5}x{H5} GOP of {len(plans265)} pictures on each of 2 "
+        f"shards, each equal to phase 9's checksums")
+
+    # -- the MPEG-2 sharded step: phase 5's 12 pictures on 2 shards ------
+    items, mgeom, m_kern, m_cks = m2
+    mplans = [it[0] for it in items]
+    if any(p.fieldmc is not None and p.fieldmc.any() for p in mplans):
+        raise RuntimeError("the MPEG-2 stream has field MC, which the "
+                           "sharded step does not take")
+    # each picture's references: the verified output that last wrote the
+    # slot before it (zeros for a slot no picture wrote)
+    last, ref_idx = {}, []
+    for b, (_, c, r0, r1) in enumerate(items):
+        ref_idx.append((last.get(r0, len(items)), last.get(r1, len(items))))
+        last[c] = b
+    ext = [torch.cat([o, torch.zeros_like(o[:1])]) for o in m_kern]
+    refs = [e[torch.tensor([ri[d] for ri in ref_idx], device=dev)]
+            for d in (0, 1) for e in ext]
+    margs = (*(np.stack([getattr(p, k) for p in mplans]) for k in (
+        "intra", "fwd", "bwd", "mvf", "mvb", "dct_type", "coef")), *refs)
+    m_step = M.sharded_decode_step(mesh(2), mgeom[0], mgeom[1])
+    outs = counted("sharded_decode_step", lambda: m_step(*margs),
+                   {"idct8x8": 2})
+    same_cks("sharded_decode_step", outs, m_cks)
+    m_seq = Mpeg2SeqPhaseB(*mgeom, device=dev)
+    report("sharded_decode_step", len(items), turns((
+        lambda: m_step(*margs), lambda: m_seq.run_async(items))),
+        "Mpeg2SeqPhaseB", f"phase 5's {len(items)} MPEG-2 pictures on 2 "
+        f"shards, each with its references from phase 5's verified "
+        f"frames, equal to phase 5's checksums")
+
+    # -- the DPB page exchange at 1920x1088 on 4 shards ------------------
+    nx, psz = 4, 2
+    rng = np.random.default_rng(SEED)
+    xpools = tuple(rng.integers(0, 256, (nx, psz, h, w), dtype=np.uint8)
+                   for h, w in ((H, W), (H // 2, W // 2), (H // 2, W // 2)))
+    xplans = []
+    for g in range(nx):
+        for i in range(2):  # random MVs, then zero MVs, both from the page
+            p = PicturePlan(mb_w, mb_h)
+            p.kind[:] = 0
+            p.slot[:, :, 0] = psz
+            p.wp[:, :, :, 0] = 1
+            if i == 0:
+                p.mv[:] = rng.integers(-64, 64, p.mv.shape)
+            xplans.append(p)
+    xst = {k: np.stack([getattr(p, k) for p in xplans]).reshape(
+        (nx, 2) + getattr(xplans[0], k).shape) for k in host._PLAN_KEYS}
+    xcur = np.ones((nx, 2), np.int32)
+    xstep = M.h264_gop_xchg_step(mesh(nx), mb_w, mb_h, psz, handoff_slot=0,
+                                 has_i8=False, deblock=False)
+    _, outs = counted("h264_gop_xchg_step",
+                      lambda: xstep(*xpools, xst, xcur),
+                      {"intra_luma": 2 * nx, "intra_chroma": 2 * nx})
+    pages = [tuple(torch.as_tensor(p[g - 1, 0:1]).to(dev)[None] if g
+                   else torch.zeros((1, 1) + p.shape[2:], dtype=torch.uint8,
+                                    device=dev) for p in xpools)
+             for g in range(nx)]
+
+    def alone(gs):
+        """Module 2 (``_recon_batch``) run alone on GOPs gs, with the
+        pages the exchange step must have sent them."""
+        return R._recon_batch(
+            *(torch.as_tensor(p[gs]).to(dev) for p in xpools),
+            {k: torch.as_tensor(v[gs]).to(dev, torch.int32)
+             for k, v in xst.items()}, xcur[gs], mb_w=mb_w, mb_h=mb_h,
+            has_i8=False, deblock=False,
+            extra=[torch.cat([pages[g][j] for g in gs]) for j in range(3)])
+
+    for g in range(nx):
+        for o, page in zip(outs, pages[g]):
+            if not torch.equal(o[g, 1], page[0, 0]):
+                raise RuntimeError(f"exchange step: shard {g}'s zero-MV "
+                                   f"picture != the previous shard's page")
+        if g:
+            want = alone([g])[1]
+            if not all(torch.equal(o[g], w[0]) for o, w in zip(outs, want)):
+                raise RuntimeError(f"exchange step: shard {g} != module 2 "
+                                   f"alone with the same page")
+    report("h264_gop_xchg_step", 2 * nx, turns((
+        lambda: xstep(*xpools, xst, xcur), lambda: alone(list(range(nx))))),
+        "_recon_batch of the 4 GOPs with their pages",
+        f"{nx} shards of one {W}x{H} GOP of 2 pictures (random MVs, then "
+        f"zero MVs) from the previous shard's page: shards 1-3 equal to "
+        f"module 2 alone with the same page, every zero-MV picture equal "
+        f"to the page it was sent (zeros on shard 0)")
+
+    # -- the GOP step through a world-size-1 NCCL process group ----------
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(torch.cuda.current_device())
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        init_s = time.perf_counter() - t0
+        if dist.get_backend() != "nccl":
+            raise RuntimeError(f"process group backend {dist.get_backend()}")
+        nccl = M.make_mesh()
+        nstep = M.h264_gop_step(nccl, mb_w, mb_h)
+        t0 = time.perf_counter()
+        outs = counted("h264_gop_step NCCL world 1", lambda: M.gather(
+            nccl, nstep(*pools, stacked, cur)[1]), {k: N for k in ROW_KERNELS})
+        nccl_s = time.perf_counter() - t0
+        same_gops("h264_gop_step over NCCL", outs)
+    finally:
+        dist.destroy_process_group()
+    phase(11, f"h264_gop_step through a world-size-1 NCCL process group on "
+              f"{smi} (mesh device {nccl.device}, init {init_s:.2f} s): "
+              f"{G} GOPs on one rank in {1e3 * nccl_s / (G * N):.3f} "
+              f"ms/picture (one run, the gather included), every GOP equal "
+              f"to phase 8's checksum; launches "
+              + json.dumps({k: v["h264_gop_step NCCL world 1"]
+                            for k, v in launches.items()
+                            if v.get("h264_gop_step NCCL world 1")}))
+    phase(11, "collectives between GPUs, and scaling with the number of "
+              "GPUs, are not measured: this machine has one GPU, so the "
+              "shards above share it")
+    phase(11, f"multi-device phase took {time.perf_counter() - t_phase:.1f} "
+              f"s; the script has run {time.perf_counter() - t_start:.1f} s")
+    return launches
 
 
 def main():
@@ -1571,15 +1974,20 @@ def run(dev, procs, t_start):
                       else round(bounds[k][2], 4)] for k in REPLACES}))
 
     # -- phase 8: H.264 on 4 and 8 streams (MultiStreamPhaseB) -----------
-    multi_launches, stacked_ms = multi_stream(dev, smi, procs, data, kern,
-                                              geom)
+    multi_launches, stacked_ms, plans2, stream_cks = multi_stream(
+        dev, smi, procs, data, kern, geom)
 
     # -- phase 9: H.265 (TurboH265Decoder, the tile kernel) --------------
-    tile_entry = h265(dev, smi, procs, step_ms)
+    h265_verified, tile_entry = h265(dev, smi, procs, step_ms)
 
     # -- phase 10: the command-line tools on the card --------------------
     cli_launches, _ = entry_points(dev, smi, procs, data, m2data, turbo,
                                    m2_turbo)
+
+    # -- phase 11: multi-device decode (parallel.mesh) on the card --------
+    mesh_launches = mesh_phase(
+        dev, smi, (plans, len(dec.frames), geom, ck_k, plans2, stream_cks),
+        h265_verified, (items, mgeom, m_kern, mk), t_start)
 
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "m2dec_tpu"))
@@ -1596,9 +2004,11 @@ def run(dev, procs, t_start):
          "multistream_launches": {S: v.get(k, 0)
                                   for S, v in multi_launches.items()},
          "stacked4_ms": stacked_ms.get(k),
-         "cli_launches": cli_launches[k]}
+         "cli_launches": cli_launches[k],
+         "mesh_launches": mesh_launches[k]}
         for k in REPLACES] + [
-        {**tile_entry, "cli_launches": cli_launches["h265_tile"]}]}))
+        {**tile_entry, "cli_launches": cli_launches["h265_tile"],
+         "mesh_launches": mesh_launches["h265_tile"]}]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -239,7 +239,7 @@ def _combine_wp(p0, p1, both, w0, w1, o, s):
 
 
 def inter_pass(plan_mv, plan_slot, plan_wp, refs_y, refs_cb, refs_cr,
-               mb_w, mb_h, hp_tab, used=None, bi_idx=None):
+               mb_w, mb_h, hp_tab, used=None, bi_idx=None, y_off=0):
     """Predict every 4x4 block of one picture of each of S streams (the
     JAX package's dense path): pred_y [S*n,16,16], pred_cb/cr [S*n,8,8]
     int32, garbage for intra MBs (selected out later).
@@ -250,7 +250,16 @@ def inter_pass(plan_mv, plan_slot, plan_wp, refs_y, refs_cb, refs_cr,
     0..K-1). bi_idx: optional [S,Bb] bi-predicted cell indices of each
     stream's picture, padded with n*16; the second prediction is fetched
     only for those cells. A stream reads only its own K (or R) planes,
-    so every stream's bytes are those of a single-stream call."""
+    so every stream's bytes are those of a single-stream call.
+
+    y_off: the pixel row of the first of the mb_h MB rows within the
+    whole picture (an MB-row band of ``parallel.mesh.h264_tile_step``):
+    MVs address the whole reference pictures refs in picture
+    coordinates. As in the JAX package, the host-derived MC aux (used,
+    bi_idx) is for whole pictures only."""
+    if y_off and (used is not None or bi_idx is not None):
+        raise ValueError("inter_pass: the MC aux (used, bi_idx) is derived "
+                         "for whole pictures; y_off must be 0 with it")
     S, R, H, W = refs_y.shape
     n = mb_w * mb_h
     B = S * n * 16
@@ -292,7 +301,7 @@ def inter_pass(plan_mv, plan_slot, plan_wp, refs_y, refs_cb, refs_cr,
 
     mb = torch.arange(S * n, dtype=I32, device=dev) % n
     x0 = (mb % mb_w) * 16
-    y0 = (mb // mb_w) * 16
+    y0 = (mb // mb_w) * 16 + y_off
     blk = torch.arange(16, dtype=I32, device=dev)
     bx = (x0[:, None] + (blk[None, :] & 3) * 4).reshape(B)
     by = (y0[:, None] + (blk[None, :] >> 2) * 4).reshape(B)
@@ -713,6 +722,56 @@ def reconstruct_plan_torch(plan, frames, device=None):
     f.y[:] = y[0].cpu().numpy()
     f.cb[:] = cb[0].cpu().numpy()
     f.cr[:] = cr[0].cpu().numpy()
+
+
+def _recon_batch(pool_y, pool_cb, pool_cr, stacked, cur_idx, *, mb_w, mb_h,
+                 has_i8, deblock, extra=None):
+    """N pictures of each of G GOPs on one device, each GOP with its own
+    frame pool: the counterpart of the JAX package's ``_recon_batch``
+    vmapped over G (the device side of ``parallel.mesh``'s GOP steps).
+
+    pools [G, P, H, W] (cb, cr [G, P, H/2, W/2]) uint8 tensors, written
+    in place; stacked: dense int32 plan tensors [G, N, ...] under
+    ``_PLAN_KEYS`` on the pools' device, optionally with the dense-MC
+    aux mc_used [G, N, K] and mc_bi [G, N, Bb] of plans whose slots are
+    remapped to them (as ``MultiStreamPhaseB`` sends them); cur_idx
+    [G, N] (host ints < P): the slot each picture writes. extra:
+    optional (y, cb, cr) [G, E, H, W] external reference pages that
+    plans address as slots P..P+E-1; pictures write only the local
+    slots. The residuals run once for the batch; then per picture step
+    one ``_recon_core`` over the G GOPs (one launch per wavefront pass
+    for all of them) and the pool write. Returns (pools, outs), outs
+    (y, cb, cr) [G, N, H, W] in decode order."""
+    pools = (pool_y, pool_cb, pool_cr)
+    cur_np = np.asarray(cur_idx)
+    G, N = cur_np.shape
+    Psz = pool_y.shape[1]
+    if cur_np.size and not (0 <= cur_np.min() and cur_np.max() < Psz):
+        raise ValueError(f"cur_idx must lie in the local pool 0..{Psz - 1}")
+    dev = pool_y.device
+    cur = (torch.from_numpy(cur_np.astype(np.int64)).to(dev)
+           + torch.arange(G, device=dev)[:, None] * Psz)
+    res_y, res_c = _residuals(stacked, has_i8)
+    n = mb_w * mb_h
+    keys = [k for k in host._PLAN_KEYS
+            if k not in ("coef_luma", "coef_chroma")]
+    outs = tuple(torch.empty((G, N) + p.shape[2:], dtype=p.dtype, device=dev)
+                 for p in pools)
+    for b in range(N):
+        P = {k: stacked[k][:, b].reshape((G * n,) + stacked[k].shape[3:])
+             for k in keys}
+        P["res_y"] = res_y[:, b].reshape(G * n, 16, 16)
+        P["res_c"] = res_c[:, b].reshape(G * n, 2, 8, 8)
+        P.update({k: stacked[k][:, b] for k in ("mc_used", "mc_bi")
+                  if k in stacked})
+        refs = (pools if extra is None else
+                tuple(torch.cat([p, e], 1) for p, e in zip(pools, extra)))
+        planes = _recon_core(P, *refs, None, mb_w=mb_w, mb_h=mb_h,
+                             has_i8=has_i8, deblock=deblock)
+        for pool, out, v in zip(pools, outs, planes):
+            pool.view((-1,) + pool.shape[2:]).index_copy_(0, cur[:, b], v)
+            out[:, b] = v
+    return pools, outs
 
 
 # =====================================================================

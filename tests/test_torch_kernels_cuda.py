@@ -632,3 +632,77 @@ def test_tile_kernel_streams(cuda, name):
         for c, a, b, o in zip(("y", "cb", "cr"), g, w, p.oracle):
             assert np.array_equal(a, b), f"picture {k} {c}: != plain"
             assert np.array_equal(a, o), f"picture {k} {c}: != oracle"
+
+
+# ------------------------------------------------ MB-row bands with a halo
+
+def _band_plan(mb_w, mb_h, seed, dev):
+    """A random whole plan (``_PLAN_KEYS``) of inter and intra MBs with
+    random MVs into one reference picture, no IPCM, as int32 numpy."""
+    from m2dec_tpu_torch.codecs.h264.plan_host import _PLAN_KEYS
+
+    n = mb_w * mb_h
+    rng = np.random.default_rng(seed)
+    P = rand_wavefront_plan(mb_w, mb_h, seed, kinds=(0, 0, 1, 2, 3))
+    P["t8x8"] = rng.integers(0, 2, n)
+    P["coef_luma"] = rng.integers(-30, 30, (n, 256)) * (
+        rng.random((n, 256)) < 0.1)
+    P["coef_chroma"] = rng.integers(-30, 30, (n, 2, 4, 16)) * (
+        rng.random((n, 2, 4, 16)) < 0.1)
+    P["mv"] = rng.integers(-64, 64, (n, 16, 2, 2))
+    P["slot"] = np.where(rng.random((n, 4, 2)) < 0.3, -1, 0)
+    P["slot"][:, :, 0] = 0
+    wp = np.zeros((n, 4, 3, 4))
+    wp[..., 0] = wp[..., 1] = wp[..., 3] = 1
+    P["wp"] = wp
+    return {k: np.asarray(P[k], np.int32) for k in _PLAN_KEYS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mb_w,bh", [(5, 3), (120, 17)])
+@pytest.mark.parametrize("name", list(PASSES))
+def test_row_kernels_band_with_halo(cuda, name, mb_w, bh):
+    """Each row kernel on an MB-row band launched with one extra MB row
+    on top that holds random halo samples and whose plan entries touch
+    no pixel (``parallel.mesh._with_halo_row``): byte-equal to its plain
+    version on the same band layout, halo rows included (the deblock
+    passes write the band above's bottom rows there)."""
+    from m2dec_tpu_torch.parallel.mesh import _with_halo_row
+
+    P = torch_plan(rand_wavefront_plan(mb_w, bh, 21, wide=True), cuda)
+    Q = _with_halo_row(P, mb_w)
+    planes = [torch.from_numpy(a).to(cuda)
+              for a in rand_planes(mb_w, bh + 1, 21)]
+    kern, plain = PASSES[name]
+    planes = _pass_planes(name, *planes)
+    want = _outs(plain(*planes, *_pass_args(name, Q, mb_w, bh + 1)))
+    n0 = WK.LAUNCHES[name]
+    got = _outs(kern(*(t.clone() for t in planes),
+                     *_pass_args(name, Q, mb_w, bh + 1)))
+    torch.cuda.synchronize()
+    assert WK.LAUNCHES[name] == n0 + 1
+    for g, w in zip(got, want):
+        _same(g, w)
+
+
+@pytest.mark.cuda
+def test_h264_tile_step_on_card(cuda):
+    """The band step on 4 in-process shards on the card (each row kernel
+    once per band) byte-equal to the same step on the CPU (the plain
+    versions), on a random plan with 8x8 transforms."""
+    from m2dec_tpu_torch.parallel import mesh as M
+
+    mb_w, mb_h, nb = 11, 8, 4
+    P = _band_plan(mb_w, mb_h, 31, cuda)
+    tiled = {k: v.reshape((nb, -1) + v.shape[1:]) for k, v in P.items()}
+    refs = [a[None] for a in rand_planes(mb_w, mb_h, 32)]
+    outs = {}
+    for dev in ("cpu", cuda):
+        step = M.h264_tile_step(M.make_mesh(nb, in_process=True, device=dev),
+                                mb_w, mb_h, has_i8=True)
+        WK.reset_launch_counts()
+        outs[str(dev)] = step(tiled, *refs)
+    torch.cuda.synchronize()
+    assert WK.LAUNCHES == {k: nb for k in PASSES}
+    for g, w in zip(outs[str(cuda)], outs["cpu"]):
+        _same(g, w)

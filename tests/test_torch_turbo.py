@@ -144,7 +144,8 @@ def test_torch_port_never_imports_jax(tmp_path):
     (TurboH265Decoder, on the CTU-tile schedule at its CTB 16: one tile
     wavefront per picture), and runs the h264dec --turbo and m2dec --fast
     tools in-process; neither jax nor any module of m2dec_tpu is
-    loaded."""
+    loaded, and importing the modules sets up no torch.distributed
+    process group."""
     h264 = tmp_path / "s.264"
     h264.write_bytes(_b_stream())
     m2v = tmp_path / "s.m2v"
@@ -160,6 +161,8 @@ def test_torch_port_never_imports_jax(tmp_path):
         "for m in pkgutil.walk_packages(m2dec_tpu_torch.__path__,\n"
         "                               'm2dec_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()  # parallel.mesh sets up none\n"
         "from m2dec_tpu_torch.runtime.turbo import (TurboH264Decoder,\n"
         "                                           TurboMpeg2Decoder)\n"
         f"data = open({str(h264)!r}, 'rb').read()\n"
