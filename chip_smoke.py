@@ -22,7 +22,11 @@ Drives the port's two main paths at 1920x1088, each on the bench's
   above: the H.264 stream in 4 MB-row bands, the H.264, H.265 and
   MPEG-2 pictures as GOP shards, the DPB page exchange at 1920x1088, on
   shards in this process on the one card, and the GOP step once through
-  a world-size-1 NCCL process group.
+  a world-size-1 NCCL process group;
+* plans without a coded map, as the Python decoder gives them (phase
+  12): the 1080p H.264 plans above with their maps taken off through
+  BatchedPhaseB and MultiStreamPhaseB, and the Python decoder's plans of
+  four small streams against the numpy plan interpreter.
 
 Then it holds each kernel against its plain PyTorch version on the card,
 each path against its plain path, against a reference (the numpy plan
@@ -120,6 +124,34 @@ STREAMS = {
 }
 (H264_STREAM, H264_STREAM2, M2V_STREAM, HIGH_STREAM, IPCM_STREAM,
  FIELDMC_STREAM, FIELDPIC_STREAM, H265_STREAM, *H265_COVER) = STREAMS
+#: phase 12's 48x32 H.264 streams for the Python decoder's plans, in
+#: pairs of one length (S = 2): tests/test_h264_plan.py's
+#: test_batched_phase_b stream and tests/test_torch_multistream.py's
+#: second mixed stream; a High stream with 8x8 transforms and a B stream
+#: with IPCM MBs
+PYPLAN_PAIRS = (
+    {"h264_plan_48x32.264": (
+        "h264_enc",
+        "H264BGen(48, 32, seed=3, skip_prob=0.25, intra_prob=0.15, "
+        "num_ref_frames=2, b_direct_prob=0.3, direct_spatial=1, qp=30)"
+        ".generate('IPBPBB')"),
+     "h264_mixed_48x32.264": (
+        "h264_enc",
+        "H264BGen(48, 32, seed=21, skip_prob=0.1, intra_prob=0.05, "
+        "num_ref_frames=2, b_direct_prob=0.4, direct_spatial=1, qp=33)"
+        ".generate('IPPBPB')")},
+    {"h264_high8x8_48x32.264": (
+        "h264_enc",
+        "H264HighGen(48, 32, seed=1, intra_prob=0.2, skip_prob=0.15, "
+        "qp=29, disable_deblock=False).generate('IPPI')"),
+     "h264_ipcm_b_48x32.264": (
+        "h264_enc",
+        "H264BGen(48, 32, seed=5, skip_prob=0.2, intra_prob=0.3, "
+        "ipcm_prob=0.5, num_ref_frames=2, b_direct_prob=0.2)"
+        ".generate('IPBP')")},
+)
+for _pair in PYPLAN_PAIRS:
+    STREAMS.update(_pair)
 
 H264_SOURCE = "m2dec_tpu_torch/csrc/h264_wavefront.cu"
 IDCT_SOURCE = "m2dec_tpu_torch/csrc/mpeg2_idct.cu"
@@ -1101,31 +1133,21 @@ def entry_points(dev, smi, procs, data, m2data, h264_cks, m2_cks):
 
 def dense_plan(plan):
     """A native Phase A plan as a plan object that the dense consumers
-    (``reconstruct_plan_torch``, the mesh steps) take: its tensors
-    (``_PLAN_KEYS``) with the coefficient blocks that its coded map marks
-    as not written set to 0. ``plan_alloc="empty"`` leaves them
-    uninitialised, since the wire packer reads only the coded ones
-    (``h264parse.cpp`` ``for_coded_luma``: bit b of bits 0..15 is luma
-    block b, 16 or 64 coefficients wide; bit 16 + k is chroma block k of
-    16)."""
+    (``reconstruct_plan_torch``, the mesh steps) take, and as the Python
+    decoder gives its plans: its tensors (``_PLAN_KEYS``) with the
+    coefficient blocks that its coded map marks as not written set to 0
+    (``plan_host.coded_coefs``: ``plan_alloc="empty"`` leaves them
+    uninitialised, since the wire packer reads only the coded ones), and
+    no coded map (``coded=None``), which the packer then derives."""
     import types
 
-    import numpy as np
+    from m2dec_tpu_torch.codecs.h264.plan_host import _PLAN_KEYS, coded_coefs
 
-    from m2dec_tpu_torch.codecs.h264.plan_host import _PLAN_KEYS
-
-    c = plan.coded.astype(np.int64)[:, None]
-    wide = ((plan.t8x8 != 0) | (plan.kind == 2))[:, None]
-    pos = np.arange(256)[None]
-    luma = (c >> np.where(wide, pos // 64, pos // 16)) & 1
-    chroma = (c >> (16 + np.arange(128)[None] // 16)) & 1
     out = types.SimpleNamespace(
         **{k: getattr(plan, k) for k in _PLAN_KEYS}, mb_w=plan.mb_w,
         mb_h=plan.mb_h, n=plan.n, cur_idx=plan.cur_idx, pcm=plan.pcm,
-        used_slots=plan.used_slots)
-    out.coef_luma = np.where(luma != 0, plan.coef_luma, 0)
-    out.coef_chroma = np.where(chroma.reshape(plan.coef_chroma.shape) != 0,
-                               plan.coef_chroma, 0)
+        live=plan.live, used_slots=plan.used_slots, coded=None)
+    out.coef_luma, out.coef_chroma = coded_coefs(plan)
     return out
 
 
@@ -1490,6 +1512,132 @@ def mesh_phase(dev, smi, h264, h265_verified, m2, t_start):
               "shards above share it")
     phase(11, f"multi-device phase took {time.perf_counter() - t_phase:.1f} "
               f"s; the script has run {time.perf_counter() - t_start:.1f} s")
+    return launches
+
+
+def python_plans_phase(dev, smi, procs, geom, plans42, plans43, want):
+    """Phase 12: plans without a coded map (the Python decoder's) on the
+    card, through the one wire packer, which derives their maps.
+
+    * At full width: the 1080p plans of phases 3 (seed 42) and 8 (seed
+      43) without their coded maps (``dense_plan``), through
+      BatchedPhaseB (S = 1) and MultiStreamPhaseB (S = 4), each stream's
+      checksum equal to phases 3 and 8; the host ms per batch of the
+      packer on these plans and on the native ones, in turns.
+    * The Python decoder's plans of four 48x32 streams, each alone and
+      in pairs, against recon_ref.
+
+    Every run launches each row kernel once per picture step (the
+    deblock kernels not at all for a batch without deblocking). Returns
+    {run: {kernel: launches}} of the 1080p runs."""
+    import numpy as np
+    import torch
+
+    from m2dec_tpu_torch.codecs.h264 import reconstruct as R
+    from m2dec_tpu_torch.codecs.h264 import wavefront_kernels as WK
+    from m2dec_tpu_torch.codecs.h264.decoder import Frame, H264Decoder
+    from m2dec_tpu_torch.codecs.h264.native_pack import pack_batches
+    from m2dec_tpu_torch.codecs.h264.recon_ref import reconstruct_plan_np
+
+    sync = torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def counted(name, run, steps, deblock=True):
+        """run() with every launch count at 0 before it; checks one launch
+        of each row kernel per picture step."""
+        WK.reset_launch_counts()
+        outs = run()
+        sync()
+        got = {k: WK.LAUNCHES[k] for k in ROW_KERNELS}
+        wanted = {k: steps if deblock or k.startswith("intra") else 0
+                  for k in ROW_KERNELS}
+        if got != wanted:
+            raise RuntimeError(f"{name}: row kernel launches {got}, want "
+                               f"{wanted}")
+        launches[name] = got
+        return outs
+
+    native = {1: [plans42], 4: [plans42, plans43] * 2}
+    bare = {id(p): dense_plan(p) for p in (*plans42, *plans43)}
+    python = {S: [[bare[id(p)] for p in pl] for pl in v]
+              for S, v in native.items()}
+
+    # -- 1080p plans without coded maps ----------------------------------
+    for S, run in ((1, lambda: [R.BatchedPhaseB(*geom, device=dev)
+                                .run_async(python[1][0])]),
+                   (4, lambda: R.MultiStreamPhaseB(4, *geom, device=dev)
+                   .run(python[4]))):
+        cks = R.MultiStreamPhaseB.checksums(counted(f"S={S}", run, BATCH))
+        bad = [s for s in range(S) if not np.array_equal(cks[s], want[s % 2])]
+        if bad:
+            raise RuntimeError(f"plans without coded maps, S = {S}: streams "
+                               f"{bad} differ from phases 3 and 8")
+    # the packer on both kinds of plan, in turns
+    pack_ms = {}
+    for S in (1, 4):
+        ts = {"native": [], "no map": []}
+        for kind in ("native", "no map", "no map", "native", "native",
+                     "no map"):
+            t0 = time.perf_counter()
+            pack_batches((native if kind == "native" else python)[S])
+            ts[kind].append(time.perf_counter() - t0)
+        for kind, v in ts.items():
+            pack_ms[f"{kind} S={S}"] = round(1e3 * statistics.median(v), 3)
+    phase(12, f"{W}x{H} plans without coded maps (phases 3 and 8's, seeds "
+              f"{SEED} and {SEED2}): BatchedPhaseB S = 1 and "
+              f"MultiStreamPhaseB S = 4 equal to phases 3 and 8 by "
+              f"checksum; row kernel launches per run "
+              + json.dumps(launches) + f" for {BATCH} picture steps; "
+              f"host pack ms per batch of {BATCH} pictures per stream on "
+              f"{smi} (native plans, and the same without their maps, "
+              f"which the packer derives; in turns, median of 3): "
+              + json.dumps(pack_ms))
+
+    # -- the Python decoder's plans of the 48x32 streams vs recon_ref ------
+    checked = []
+    for pair in PYPLAN_PAIRS:
+        runs = []
+        for name in pair:
+            dec = H264Decoder(dpb_max=1, record_plans=True)
+            dec.set_data(stream(name, procs))
+            shadow, exp = None, []
+            while dec.decode_picture() == 1:
+                if shadow is None:
+                    h, w = dec.frames[0].y.shape
+                    shadow = [Frame(w, h) for _ in dec.frames]
+                plan = dec.plans[-1]
+                reconstruct_plan_np(plan, shadow)
+                f = shadow[plan.cur_idx]
+                exp.append((f.y.copy(), f.cb.copy(), f.cr.copy()))
+            runs.append((dec, exp))
+        d0 = runs[0][0]
+        steps = len(runs[0][1])
+        for idx in ([0], [1], [0, 1]):
+            deblock = any(R._plan_flags(p.kind, p.t8x8, p.deb_str,
+                                        p.deb_str4)[1]
+                          for i in idx for p in runs[i][0].plans)
+            ms = R.MultiStreamPhaseB(
+                len(idx), d0.max_x, d0.max_y,
+                max(len(d.frames) for d, _ in runs), device=dev)
+            name = "+".join(list(pair)[i] for i in idx)
+            outs = counted(name, lambda: ms.run(
+                [runs[i][0].plans for i in idx]), steps, deblock)
+            del launches[name]
+            for s, i in enumerate(idx):
+                for k, e in enumerate(runs[i][1]):
+                    for pl, o, x in zip(("y", "cb", "cr"), outs[s], e):
+                        if not np.array_equal(o[k].cpu().numpy(), x):
+                            raise RuntimeError(
+                                f"{name}: stream {i} picture {k} {pl} "
+                                f"!= recon_ref")
+            checked.append(name)
+    phase(12, f"Python decoder plans of {sum(map(len, PYPLAN_PAIRS))} 48x32 "
+              f"streams on the card: {len(checked)} runs (each stream alone "
+              f"and in pairs) equal to recon_ref byte for byte, each row "
+              f"kernel launched once per picture step")
+    phase(12, f"plans without coded maps phase took "
+              f"{time.perf_counter() - t_phase:.1f} s on {smi}")
     return launches
 
 
@@ -1989,6 +2137,10 @@ def run(dev, procs, t_start):
         dev, smi, (plans, len(dec.frames), geom, ck_k, plans2, stream_cks),
         h265_verified, (items, mgeom, m_kern, mk), t_start)
 
+    # -- phase 12: plans without coded maps (the Python decoder's) --------
+    pyplan_launches = python_plans_phase(dev, smi, procs, geom, plans,
+                                         plans2, stream_cks)
+
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "m2dec_tpu"))
     if bad:
@@ -2005,7 +2157,9 @@ def run(dev, procs, t_start):
                                   for S, v in multi_launches.items()},
          "stacked4_ms": stacked_ms.get(k),
          "cli_launches": cli_launches[k],
-         "mesh_launches": mesh_launches[k]}
+         "mesh_launches": mesh_launches[k],
+         "pyplan_launches": {run: v.get(k, 0)
+                             for run, v in pyplan_launches.items()}}
         for k in REPLACES] + [
         {**tile_entry, "cli_launches": cli_launches["h265_tile"],
          "mesh_launches": mesh_launches["h265_tile"]}]}))

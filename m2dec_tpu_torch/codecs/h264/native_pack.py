@@ -20,6 +20,8 @@ import numpy as np
 
 from m2dec_tpu_torch.native import load_h264
 
+from .plan_host import derive_coded
+
 _VOIDP = ctypes.c_void_p
 
 #: per-picture plan fields in the order h264pack_* consumes them
@@ -73,11 +75,13 @@ class _StreamCtx:
     def measure(self, plans, n):
         B = len(plans)
         ptr_list = []
-        for p in plans:
+        coded = [p.coded if p.coded is not None else derive_coded(p)
+                 for p in plans]
+        for p, c in zip(plans, coded):
             for f in _FIELDS:
                 ptr_list.append(getattr(p, f).ctypes.data)
-            ptr_list.append(p.coded.ctypes.data)
-        self.keep = plans
+            ptr_list.append(c.ctypes.data)
+        self.keep = plans, coded
         self.ptrs = (_VOIDP * len(ptr_list))(*ptr_list)
         self.lib.h264pack_measure(
             self.pk, self.ptrs, B, n,
@@ -187,16 +191,14 @@ def pack_batches(plans_per_stream):
 
     Returns (blobs, layout, pals_list, has_i8, deblock) with one blob +
     one pals dict per stream under a single common layout, or None when
-    the native packer can't serve these plans (missing coded maps).
+    the lists differ in length. Plans of any Phase A: a plan without a
+    coded map (the Python decoder's) gets one from its nonzero blocks
+    (``plan_host.derive_coded``), and the two kinds mix in a batch.
     PCM macroblocks are fine: their coefficients carry no
     coded-map bits (pack as zeros, masked by the kind==4 pixel
     substitution) and their samples ride the pcm side-channel next to
     the blob (reconstruct._pcm_rows)."""
     lib = load_h264()
-    for plans in plans_per_stream:
-        for p in plans:
-            if p.coded is None:
-                return None
     n = plans_per_stream[0][0].n
     B = len(plans_per_stream[0])
     for plans in plans_per_stream:

@@ -1,8 +1,9 @@
 """Host-side (numpy) pieces of H.264 Phase B, copied from the JAX
 package's ``codecs/h264/reconstruct.py``: the quarter-pel and intra-mode
-tables, the plan key order, IPCM rows, the device-slot map and the
-dense-MC aux derivation that run on the host before a batch is copied
-to the device, and the typed views of a packed wire blob.
+tables, the plan key order, IPCM rows, the coded-block map of a plan
+without one, the device-slot map and the dense-MC aux derivation that
+run on the host before a batch is copied to the device, and the typed
+views of a packed wire blob.
 """
 
 from __future__ import annotations
@@ -262,6 +263,40 @@ def _pcm_rows(plans, nmb):
             rows[b, mbpos, 256:320] = cbb.ravel()
             rows[b, mbpos, 320:] = crb.ravel()
     return rows
+
+
+def coded_coefs(plan):
+    """(coef_luma, coef_chroma) of a native plan with the blocks that its
+    coded map marks as not written set to 0: ``plan_alloc="empty"``
+    leaves them uninitialised, since the native packer reads only the
+    coded ones (``h264parse.cpp`` ``for_coded_luma``: bit b of bits
+    0..15 is luma block b, 16 coefficients wide, or 64 in an MB with
+    8x8 transforms; bit 16 + k is chroma block k of 16, k = 4 * plane +
+    block)."""
+    c = plan.coded.astype(np.int64)[:, None]
+    wide = ((plan.t8x8 != 0) | (plan.kind == 2))[:, None]
+    pos = np.arange(256)[None]
+    luma = (c >> np.where(wide, pos // 64, pos // 16)) & 1
+    chroma = ((c >> (16 + np.arange(128)[None] // 16)) & 1).reshape(
+        plan.coef_chroma.shape)
+    return (np.where(luma != 0, plan.coef_luma, 0),
+            np.where(chroma != 0, plan.coef_chroma, 0))
+
+
+def derive_coded(plan):
+    """The coded map (``coded_coefs``'s bits) of a plan that has none,
+    the Python decoder's: a block's bit is set where any of its
+    coefficients is nonzero. The native packer reads only coded blocks
+    and keeps only their nonzero values, so the plan packs as if every
+    block were read."""
+    n = plan.n
+    wide = (plan.t8x8 != 0) | (plan.kind == 2)
+    luma = plan.coef_luma.reshape(n, 16, 16).any(2)
+    luma[wide] = False
+    luma[wide, :4] = plan.coef_luma[wide].reshape(-1, 4, 64).any(2)
+    chroma = plan.coef_chroma.reshape(n, 8, 16).any(2)
+    bits = np.concatenate([luma, chroma], 1).astype(np.uint32)
+    return (bits << np.arange(24, dtype=np.uint32)).sum(1, dtype=np.uint32)
 
 
 class _DevSlotMap:

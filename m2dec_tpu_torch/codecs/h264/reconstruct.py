@@ -908,11 +908,12 @@ class MultiStreamPhaseB:
     stream, and each picture step of all S streams as one set of torch
     ops and one launch per wavefront pass.
 
-    A batch (``run``) takes S plan lists of equal length, of the native
-    Phase A (``H264Decoder(native=True)``): the host packs all S into
-    one buffer, copied to the device once (pinned on CUDA); wire unpack
-    and the residual iDCT run once for the batch; then per picture step
-    MC, assembly, the PCM select, the four passes and the pool write.
+    A batch (``run``) takes S plan lists of equal length, of any Phase
+    A (the native packer derives the coded map of a plan of the Python
+    decoder, which has none): the host packs all S into one buffer,
+    copied to the device once (pinned on CUDA); wire unpack and the
+    residual iDCT run once for the batch; then per picture step MC,
+    assembly, the PCM select, the four passes and the pool write.
     ``wavefronts`` selects the intra+deblock pass (``run_wavefronts``:
     the kernels on CUDA). device=None is the CUDA device (raises without
     one)."""
@@ -947,12 +948,8 @@ class MultiStreamPhaseB:
                 or len({len(p) for p in plans_per_stream}) != 1):
             raise ValueError(f"want {self.n} plan lists of one length, got "
                              f"{[len(p) for p in plans_per_stream]}")
-        res = pack_batches(plans_per_stream)
-        if res is None:
-            raise ValueError(f"{type(self).__name__} takes the plans of "
-                             "the native Phase A (H264Decoder(native=True)), "
-                             "which the native wire packer serves")
-        blobs, layout, pals_list, has_i8, deblock = res
+        blobs, layout, pals_list, has_i8, deblock = pack_batches(
+            plans_per_stream)
         fields = [host._wire_views(b, layout) for b in blobs]
         cur = np.zeros((self.n, len(plans_per_stream[0])), np.int32)
         for s, plans in enumerate(plans_per_stream):

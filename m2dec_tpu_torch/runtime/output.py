@@ -49,3 +49,19 @@ def frame_md5_line(frame) -> bytes:
     """One frame's golden line: 32 hex + CR LF (filewrite.h:98-103)."""
     digest = hashlib.md5(cropped_nv12_bytes(frame)).hexdigest()
     return digest.encode() + b"\r\n"
+
+
+class RawWriter:
+    def __init__(self, fileobj):
+        self.f = fileobj
+
+    def write_frame(self, frame):
+        self.f.write(cropped_nv12_bytes(frame))
+
+
+class Md5Writer:
+    def __init__(self, fileobj):
+        self.f = fileobj
+
+    def write_frame(self, frame):
+        self.f.write(frame_md5_line(frame))

@@ -109,15 +109,27 @@ def test_torch_device_checksum_matches_host():
 
 
 def test_torch_batched_needs_native_plans():
-    """Plans of the Python decoder carry no coded maps, which the native
-    wire packer needs: BatchedPhaseB refuses them."""
+    """Plans of the Python decoder carry no coded maps: the wire packer
+    derives them, and every picture of BatchedPhaseB equals the JAX
+    package's numpy plan interpreter (recon_ref) on the same plans."""
+    from m2dec_tpu.codecs.h264.decoder import Frame
+    from m2dec_tpu.codecs.h264.recon_ref import reconstruct_plan_np
+
     dec = H264Decoder(dpb_max=1, record_plans=True)
     dec.set_data(_b_stream())
-    dec.decode_picture()
-    assert dec.plans[0].coded is None
+    while dec.decode_picture() == 1:
+        pass
+    assert all(p.coded is None for p in dec.plans)
     b = BatchedPhaseB(dec.max_x, dec.max_y, len(dec.frames), device="cpu")
-    with pytest.raises(ValueError, match="native"):
-        b.run_async(dec.plans)
+    outs = b.run_async(dec.plans)
+    h, w = dec.frames[0].y.shape
+    shadow = [Frame(w, h) for _ in dec.frames]
+    for k, plan in enumerate(dec.plans):
+        reconstruct_plan_np(plan, shadow)
+        f = shadow[plan.cur_idx]
+        for pl, o in zip(("y", "cb", "cr"), outs):
+            assert np.array_equal(o[k].numpy(), getattr(f, pl)), \
+                f"picture {k} {pl}"
 
 
 @pytest.mark.parametrize("crop", [(0, 0, 0, 0), (2, 6, 4, 8)])
