@@ -19,6 +19,8 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
+from .runtime import trace
+
 _HERE = pathlib.Path(__file__).resolve().parent
 
 CSRC = _HERE / "csrc"
@@ -119,7 +121,8 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(key)
         if lib is not None:
             return lib
-        lib = ctypes.CDLL(str(_build(name)))
+        with trace.span("setup.build"):
+            lib = ctypes.CDLL(str(_build(name)))
         entries = (VARIANTS[name][2] if name in VARIANTS
                    else LIBRARIES[name])
         for fn_name, argtypes in entries.items():

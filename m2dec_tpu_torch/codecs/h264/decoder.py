@@ -23,6 +23,7 @@ from m2dec_tpu_torch.bitstream.reader import (
     find_start_codes,
     unescape_nal,
 )
+from m2dec_tpu_torch.runtime import trace
 from . import cabac as AE, cavlc, dpb as dpb_mod, headers, pred, pred8x8 as P8, tables as T, transforms as X
 from .dpb import (
     LONG_TERM,
@@ -701,8 +702,10 @@ class H264Decoder:
             # its out_state is irrelevant (the next slice header resets
             # position state, and is_filled is knowably False). The
             # picture's last slice runs synchronously after a join.
-            if self.native_session.run_slice(
-                    self, r, allow_async=self._next_nal_same_picture()):
+            with trace.span("phase_a.slice"):
+                queued = self.native_session.run_slice(
+                    self, r, allow_async=self._next_nal_same_picture())
+            if queued:
                 return 0
             return self._post_process()
         if self.is_cabac:

@@ -19,6 +19,7 @@ import ctypes
 import numpy as np
 
 from m2dec_tpu_torch.native import load_h264
+from m2dec_tpu_torch.runtime import trace
 
 from .plan_host import derive_coded
 
@@ -73,20 +74,21 @@ class _StreamCtx:
             self.pk = None
 
     def measure(self, plans, n):
-        B = len(plans)
-        ptr_list = []
-        coded = [p.coded if p.coded is not None else derive_coded(p)
-                 for p in plans]
-        for p, c in zip(plans, coded):
-            for f in _FIELDS:
-                ptr_list.append(getattr(p, f).ctypes.data)
-            ptr_list.append(c.ctypes.data)
-        self.keep = plans, coded
-        self.ptrs = (_VOIDP * len(ptr_list))(*ptr_list)
-        self.lib.h264pack_measure(
-            self.pk, self.ptrs, B, n,
-            self.meta.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
-        return self.meta
+        with trace.span("pack.measure"):
+            B = len(plans)
+            ptr_list = []
+            coded = [p.coded if p.coded is not None else derive_coded(p)
+                     for p in plans]
+            for p, c in zip(plans, coded):
+                for f in _FIELDS:
+                    ptr_list.append(getattr(p, f).ctypes.data)
+                ptr_list.append(c.ctypes.data)
+            self.keep = plans, coded
+            self.ptrs = (_VOIDP * len(ptr_list))(*ptr_list)
+            self.lib.h264pack_measure(
+                self.pk, self.ptrs, B, n,
+                self.meta.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+            return self.meta
 
 
 def _common_dims(metas):
@@ -219,28 +221,29 @@ def pack_batches(plans_per_stream):
                     d["ab_mode"], d["mv_pad"], d["wp_pad"], d["ab_pad"],
                     0, 0], np.int64)
     def fill_one(sc):
-        blob = np.empty(total, np.uint8)
-        base = blob.ctypes.data
-        leaf_ptrs = (_VOIDP * len(offsets))(
-            *[base + off for off in offsets])
-        pals = {}
-        mv_pal = wp_pal = ab_pal = None
-        if d["mv_mode"] <= 1:
-            mv_pal = np.empty((d["mv_pad"], 4), np.int16)
-            pals["mv"] = mv_pal
-        if d["wp_mode"] <= 1:
-            wp_pal = np.empty((d["wp_pad"], 12), np.int16)
-            pals["wp"] = wp_pal
-        if d["ab_mode"] <= 1:
-            ab_pal = np.empty((d["ab_pad"], 24), np.int8)
-            pals["deb_ab"] = ab_pal
-        lib.h264pack_fill(
-            sc.pk, sc.ptrs, B, n, leaf_ptrs,
-            job.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-            None if mv_pal is None else mv_pal.ctypes.data,
-            None if wp_pal is None else wp_pal.ctypes.data,
-            None if ab_pal is None else ab_pal.ctypes.data)
-        return blob, pals
+        with trace.span("pack.fill"):
+            blob = np.empty(total, np.uint8)
+            base = blob.ctypes.data
+            leaf_ptrs = (_VOIDP * len(offsets))(
+                *[base + off for off in offsets])
+            pals = {}
+            mv_pal = wp_pal = ab_pal = None
+            if d["mv_mode"] <= 1:
+                mv_pal = np.empty((d["mv_pad"], 4), np.int16)
+                pals["mv"] = mv_pal
+            if d["wp_mode"] <= 1:
+                wp_pal = np.empty((d["wp_pad"], 12), np.int16)
+                pals["wp"] = wp_pal
+            if d["ab_mode"] <= 1:
+                ab_pal = np.empty((d["ab_pad"], 24), np.int8)
+                pals["deb_ab"] = ab_pal
+            lib.h264pack_fill(
+                sc.pk, sc.ptrs, B, n, leaf_ptrs,
+                job.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                None if mv_pal is None else mv_pal.ctypes.data,
+                None if wp_pal is None else wp_pal.ctypes.data,
+                None if ab_pal is None else ab_pal.ctypes.data)
+            return blob, pals
     if len(ctxs) > 1:
         results = list(_pack_pool().map(fill_one, ctxs))
     else:

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ...device import resolve_device
+from ...runtime import trace
 from ...runtime.golden import stack_checksum
 from . import plan_host as host
 from .decoder import Frame
@@ -653,9 +654,11 @@ def _recon_core(P, refs_y, refs_cb, refs_cr, pcm, *, mb_w, mb_h, has_i8,
     (kernels on CUDA, plain scans on CPU), called on the [S,H,W] planes."""
     kind = P["kind"]
     res_y, res_c = P["res_y"], P["res_c"]
-    pred_y, pred_cb, pred_cr = inter_pass(
-        P["mv"], P["slot"], P["wp"], refs_y, refs_cb, refs_cr, mb_w, mb_h,
-        host._HP_TAB, used=P.get("mc_used"), bi_idx=P.get("mc_bi"))
+    with trace.span("step.mc"):
+        pred_y, pred_cb, pred_cr = inter_pass(
+            P["mv"], P["slot"], P["wp"], refs_y, refs_cb, refs_cr, mb_w,
+            mb_h, host._HP_TAB, used=P.get("mc_used"),
+            bi_idx=P.get("mc_bi"))
     is_inter = (kind == 0)[:, None, None]
     zero = torch.zeros((), dtype=I32, device=kind.device)
     inter_y = torch.where(is_inter, (pred_y + res_y).clamp(0, 255), zero)
@@ -675,10 +678,11 @@ def _recon_core(P, refs_y, refs_cb, refs_cr, pcm, *, mb_w, mb_h, has_i8,
         cb_plane = torch.where(kpixc == 4, pcm_cb.to(I32), cb_plane)
         cr_plane = torch.where(kpixc == 4, pcm_cr.to(I32), cr_plane)
     u8 = torch.uint8
-    return wavefronts(y_plane.to(u8).contiguous(),
-                      cb_plane.to(u8).contiguous(),
-                      cr_plane.to(u8).contiguous(), P, has_i8, deblock,
-                      mb_w, mb_h)
+    with trace.span("step.passes"):
+        return wavefronts(y_plane.to(u8).contiguous(),
+                          cb_plane.to(u8).contiguous(),
+                          cr_plane.to(u8).contiguous(), P, has_i8, deblock,
+                          mb_w, mb_h)
 
 
 def _plan_flags(kind, t8x8, deb_str, deb_str4):
@@ -971,7 +975,9 @@ class MultiStreamPhaseB:
 
     def _upload(self, buf):
         """The batch's one host->device copy."""
-        return buf.to(self.device, non_blocking=True)
+        with trace.span("batch.upload"):
+            trace.count("upload_bytes", buf.nbytes)
+            return buf.to(self.device, non_blocking=True)
 
     def _store(self, b, cur, planes, outs):
         """Picture step b's planes [S,H,W] into each stream's pool slot
@@ -984,20 +990,26 @@ class MultiStreamPhaseB:
         """Dispatch one batch: S lists of plans in decode order, one
         length. Returns per stream its (y [B,H,W], cb, cr) uint8 device
         stacks in decode order, without synchronising."""
-        buf, layout, has_i8, deblock = self._host_batch(plans_per_stream)
-        P, pcm, cur = _unpack_batch(self._upload(buf), layout, has_i8,
-                                    self.mb_w, self.mb_h, self.pool_size)
+        with trace.span("batch.pack"):
+            buf, layout, has_i8, deblock = self._host_batch(
+                plans_per_stream)
+        dbuf = self._upload(buf)
+        with trace.span("batch.unpack"):
+            P, pcm, cur = _unpack_batch(dbuf, layout, has_i8, self.mb_w,
+                                        self.mb_h, self.pool_size)
         B = cur.shape[0]
         outs = tuple(torch.empty((B,) + p.shape[:1] + p.shape[2:],
                                  dtype=p.dtype, device=self.device)
                      for p in self.pool)
         for b in range(B):
-            planes = _recon_core(
-                {k: v[b] for k, v in P.items()}, *self.pool,
-                None if pcm is None else tuple(p[b] for p in pcm),
-                mb_w=self.mb_w, mb_h=self.mb_h, has_i8=has_i8,
-                deblock=deblock, wavefronts=self.wavefronts)
-            self._store(b, cur[b], planes, outs)
+            with trace.span("step"):
+                planes = _recon_core(
+                    {k: v[b] for k, v in P.items()}, *self.pool,
+                    None if pcm is None else tuple(p[b] for p in pcm),
+                    mb_w=self.mb_w, mb_h=self.mb_h, has_i8=has_i8,
+                    deblock=deblock, wavefronts=self.wavefronts)
+                with trace.span("step.store"):
+                    self._store(b, cur[b], planes, outs)
         return [tuple(o[:, s] for o in outs) for s in range(self.n)]
 
     @staticmethod

@@ -12,6 +12,7 @@ import dataclasses
 
 from m2dec_tpu_torch.bitstream import BitReader
 from m2dec_tpu_torch.bitstream.reader import find_start_codes, unescape_nal
+from m2dec_tpu_torch.runtime import trace
 
 # nal_unit_type (spec Table 7-1)
 NAL_TRAIL_N, NAL_TRAIL_R = 0, 1
@@ -853,8 +854,9 @@ class H265Decoder:
                 self._sess.begin_picture(self._cur)
             cur = self._cur
             self.pool[cur]["poc"] = hdr.poc
-            self._sess.run_slice(hdr, pps, sps, r, self.pool, cur,
-                                 hdr.first_slice)
+            with trace.span("phase_a.slice"):
+                self._sess.run_slice(hdr, pps, sps, r, self.pool, cur,
+                                     hdr.first_slice)
             self._insert_dpb(cur, hdr.poc, is_idr, None, self._emit)
             return
         # find_empty_frame only on the first slice segment of a

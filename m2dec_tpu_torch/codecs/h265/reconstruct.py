@@ -55,6 +55,7 @@ import torch
 from ...device import resolve_device
 from ...errors import StreamFeatureExcluded
 from ...native import load_oplevel
+from ...runtime import trace
 from ..mpeg2.reconstruct import _upload
 from . import residual as _RES
 from . import wavefront_kernels as TK
@@ -1643,53 +1644,63 @@ def _recon_picture(x, m, pool_y, pool_cb, pool_cr, wf):
     planes."""
     H, W = m.H, m.W
     Hc, Wc = H >> 1, W >> 1
-    res_y = residual_plane(x["coef_y"], x["tu_y"], m.sizes_y, True)
-    res_cb = residual_plane(x["coef_cb"], x["tu_cb"], m.sizes_cb, False)
-    res_cr = residual_plane(x["coef_cr"], x["tu_cr"], m.sizes_cr, False)
+    with trace.span("step.residual"):
+        res_y = residual_plane(x["coef_y"], x["tu_y"], m.sizes_y, True)
+        res_cb = residual_plane(x["coef_cb"], x["tu_cb"], m.sizes_cb,
+                                False)
+        res_cr = residual_plane(x["coef_cr"], x["tu_cr"], m.sizes_cr,
+                                False)
     prior_y = pool_y[m.cur_idx].to(I32)
     prior_cb = pool_cb[m.cur_idx].to(I32)
     prior_cr = pool_cr[m.cur_idx].to(I32)
     if m.has_mc:
         # intra pictures have no inter cells: the host skips the MC pass
-        mask, mc_y, mc_cb, mc_cr = inter_pass(
-            x["slot"], x["mv"], pool_y, pool_cb, pool_cr, m.pic_w, m.pic_h,
-            x["mc_used"], x["mc_remap"])
-        mp = mask.repeat_interleave(4, 0).repeat_interleave(4, 1)
-        y = torch.where(mp, _clip255(mc_y + res_y), prior_y)
-        mpc = mask.repeat_interleave(2, 0).repeat_interleave(2, 1)
-        cb = torch.where(mpc, _clip255(mc_cb + res_cb), prior_cb)
-        cr = torch.where(mpc, _clip255(mc_cr + res_cr), prior_cr)
+        with trace.span("step.mc"):
+            mask, mc_y, mc_cb, mc_cr = inter_pass(
+                x["slot"], x["mv"], pool_y, pool_cb, pool_cr, m.pic_w,
+                m.pic_h, x["mc_used"], x["mc_remap"])
+            mp = mask.repeat_interleave(4, 0).repeat_interleave(4, 1)
+            y = torch.where(mp, _clip255(mc_y + res_y), prior_y)
+            mpc = mask.repeat_interleave(2, 0).repeat_interleave(2, 1)
+            cb = torch.where(mpc, _clip255(mc_cb + res_cb), prior_cb)
+            cr = torch.where(mpc, _clip255(mc_cr + res_cr), prior_cr)
     else:
         y, cb, cr = prior_y, prior_cb, prior_cr
     # intra wavefront over padded planes; cb/cr vertically stacked so
     # each step runs ONE chroma apply for both components
-    wf.load(y, cb, cr, res_y, res_cb, res_cr)
-    if m.wf_mode == "tile":
-        # the CUDA kernel on the card, its plain version on the CPU
-        TK.tile_wavefront(wf.y, wf.c, wf.ry, wf.rc, x["zl"], x["zc"], H,
-                          W, m.ctb_log2, m.strong_en)
-    else:
-        (_, hs), (_, hb), (_, cs), (_, cb_) = m.banks
-        _wavefront_luma(wf, x["ls"], hs, x["lb"], hb, m.strong_en)
-        _wavefront_chroma(wf, x["cs"], cs, x["cb"], cb_)
-    y, cb, cr = wf.planes()
+    with trace.span("step.intra"):
+        wf.load(y, cb, cr, res_y, res_cb, res_cr)
+        if m.wf_mode == "tile":
+            # the CUDA kernel on the card, its plain version on the CPU
+            TK.tile_wavefront(wf.y, wf.c, wf.ry, wf.rc, x["zl"], x["zc"],
+                              H, W, m.ctb_log2, m.strong_en)
+        else:
+            (_, hs), (_, hb), (_, cs), (_, cb_) = m.banks
+            _wavefront_luma(wf, x["ls"], hs, x["lb"], hb, m.strong_en)
+            _wavefront_chroma(wf, x["cs"], cs, x["cb"], cb_)
+        y, cb, cr = wf.planes()
     cl2 = m.ctb_log2
     pw, ph = m.pic_w, m.pic_h
 
     def filters(y, cb, cr, s):
+        # a span each on a one-slice picture; the replay of a multi-slice
+        # picture's filters (below) runs under its step's span alone
+        one = s is None
         if m.deblock:
-            y, cb, cr = deblock_frame(y, cb, cr, *(
-                x[k] if s is None else x[k][s]
-                for k in ("dbv", "dbh", "dbcv", "dbch")))
+            with trace.span("step.deblock") if one else trace.NOOP:
+                y, cb, cr = deblock_frame(y, cb, cr, *(
+                    x[k] if one else x[k][s]
+                    for k in ("dbv", "dbh", "dbcv", "dbch")))
         if m.has_sao:
-            idx, opt, off = (x[k] if s is None else x[k][s]
-                             for k in ("sao_idx", "sao_opt", "sao_off"))
-            y = sao_plane(y, idx[:, :, 0], opt[:, :, 0], off[:, :, 0], cl2,
-                          pw, ph)
-            cb = sao_plane(cb, idx[:, :, 1], opt[:, :, 1], off[:, :, 1],
-                           cl2 - 1, pw >> 1, ph >> 1)
-            cr = sao_plane(cr, idx[:, :, 1], opt[:, :, 2], off[:, :, 2],
-                           cl2 - 1, pw >> 1, ph >> 1)
+            with trace.span("step.sao") if one else trace.NOOP:
+                idx, opt, off = (x[k] if one else x[k][s]
+                                 for k in ("sao_idx", "sao_opt", "sao_off"))
+                y = sao_plane(y, idx[:, :, 0], opt[:, :, 0], off[:, :, 0],
+                              cl2, pw, ph)
+                cb = sao_plane(cb, idx[:, :, 1], opt[:, :, 1],
+                               off[:, :, 1], cl2 - 1, pw >> 1, ph >> 1)
+                cr = sao_plane(cr, idx[:, :, 1], opt[:, :, 2],
+                               off[:, :, 2], cl2 - 1, pw >> 1, ph >> 1)
         return y, cb, cr
 
     if m.slices is None:
@@ -1864,11 +1875,16 @@ class H265SeqPhaseB:
         return self._run([plan])
 
     def _run(self, plans):
-        fields, metas = stack_plans(plans, self.wf_mode)
-        xs = _picture_views(_upload(fields, self.device), metas)
+        with trace.span("batch.pack"):
+            fields, metas = stack_plans(plans, self.wf_mode)
+        dev = _upload(fields, self.device)
+        with trace.span("batch.unpack"):
+            xs = _picture_views(dev, metas)
         outs = tuple(torch.empty((len(plans),) + p.shape[1:], dtype=U8,
                                  device=self.device) for p in self.pool)
         for b, (x, m) in enumerate(zip(xs, metas)):
-            planes = _recon_picture(x, m, *self.pool, self.wf)
-            self._store(b, m.cur_idx, planes, outs)
+            with trace.span("step"):
+                planes = _recon_picture(x, m, *self.pool, self.wf)
+                with trace.span("step.store"):
+                    self._store(b, m.cur_idx, planes, outs)
         return outs

@@ -26,6 +26,7 @@ import torch
 from ...device import resolve_device
 from ...kernels import mpeg2_mc as mc
 from ...kernels.idct_kernels import idct8x8_blocks
+from ...runtime import trace
 
 I32 = torch.int32
 U8 = torch.uint8
@@ -148,20 +149,22 @@ def _upload(fields, device):
     """Stack the fields into ONE host buffer (pinned for a CUDA device),
     copy it to ``device`` in one transfer, and return typed device views
     {name: tensor [B, ...]}."""
-    layout, total = [], 0
-    for k, (rows, dt) in fields.items():
-        shape = (len(rows),) + rows[0].shape
-        nb = int(np.prod(shape)) * np.dtype(dt).itemsize
-        layout.append((k, np.dtype(dt), shape, total, nb))
-        total += (nb + 15) & ~15
-    hbuf = torch.empty(total, dtype=U8,
-                       pin_memory=torch.device(device).type == "cuda")
-    host = hbuf.numpy()
-    for k, dt, shape, off, nb in layout:
-        view = host[off:off + nb].view(dt).reshape(shape)
-        for b, r in enumerate(fields[k][0]):
-            view[b] = r
-    dbuf = hbuf.to(device, non_blocking=True)
+    with trace.span("batch.upload"):
+        layout, total = [], 0
+        for k, (rows, dt) in fields.items():
+            shape = (len(rows),) + rows[0].shape
+            nb = int(np.prod(shape)) * np.dtype(dt).itemsize
+            layout.append((k, np.dtype(dt), shape, total, nb))
+            total += (nb + 15) & ~15
+        hbuf = torch.empty(total, dtype=U8,
+                           pin_memory=torch.device(device).type == "cuda")
+        host = hbuf.numpy()
+        for k, dt, shape, off, nb in layout:
+            view = host[off:off + nb].view(dt).reshape(shape)
+            for b, r in enumerate(fields[k][0]):
+                view[b] = r
+        trace.count("upload_bytes", hbuf.nbytes)
+        dbuf = hbuf.to(device, non_blocking=True)
     return {k: dbuf[off:off + nb].view(_TORCH_DT[dt]).reshape(shape)
             for k, dt, shape, off, nb in layout}
 

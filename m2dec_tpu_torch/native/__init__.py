@@ -24,6 +24,8 @@ import platform
 import subprocess
 import threading
 
+from m2dec_tpu_torch.runtime import trace
+
 _HERE = pathlib.Path(__file__).resolve().parent
 BUILD_ROOT = _HERE.parent.parent / "build" / "torch_native"
 CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
@@ -91,7 +93,8 @@ def _load(name, declare):
     with _LOCK:
         lib = _LIBS.get(key)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
+            with trace.span("setup.build"):
+                lib = ctypes.CDLL(str(build(name)))
             declare(lib)
             _LIBS[key] = lib
         return lib

@@ -4,14 +4,12 @@ The reference's observability is stderr prints + the rdtsc busy/idle
 CSV (unithread.h:85-147); this module adds the production counterpart:
 per-session counters (frames decoded/output/dropped, pictures errored,
 bytes consumed) and rate gauges (decode fps over a sliding window),
-exported as a dict / one-line JSON for scraping.  Pure stdlib, no
-global state: embed a `Metrics` in a pipeline/decoder driver and call
-`snapshot()`.
+exported as a dict.  Pure stdlib, no global state: embed a `Metrics` in
+a pipeline/decoder driver and call `snapshot()`.
 """
 
 from __future__ import annotations
 
-import json
 import threading
 import time
 from collections import deque
@@ -61,6 +59,3 @@ class Metrics:
         for k in names:
             out[f"{k}_per_s"] = round(self.rate(k), 3)
         return out
-
-    def json_line(self) -> str:
-        return json.dumps(self.snapshot(), sort_keys=True)

@@ -11,7 +11,9 @@ reference's FileReader -> Decoder -> display/write pipeline
 
 Each stage records a busy/idle timeline (the reference's rdtsc
 RecordTime/LogDump profiler, unithread.h:58-147); `Pipeline.timeline_csv`
-emits the same start,stop CSV rows its timingchart viewer consumes.
+emits the same start,stop CSV rows its timingchart viewer consumes. The
+times are ``time.time_ns()``, the clock of ``runtime.trace``, which also
+records each busy span as ``pipeline.<stage>`` while it records.
 
 The port's copy of ``m2dec_tpu/runtime/pipeline.py``, with ``device=``:
 every Phase B runs on the CUDA device unless the caller passes
@@ -31,20 +33,26 @@ import queue
 import threading
 import time
 
+from . import trace
+
 
 class StageTimer:
-    """Busy-interval recorder (unithread.h RecordTime equivalent)."""
+    """Busy-interval recorder (unithread.h RecordTime equivalent), on
+    ``time.time_ns()``; also span ``pipeline.<name>`` of ``trace``."""
 
     def __init__(self, name):
         self.name = name
         self.spans = []  # (start_ns, stop_ns)
 
     def __enter__(self):
-        self._t0 = time.perf_counter_ns()
+        self._span = trace.span(f"pipeline.{self.name}")
+        self._span.__enter__()
+        self._t0 = time.time_ns()
         return self
 
     def __exit__(self, *exc):
-        self.spans.append((self._t0, time.perf_counter_ns()))
+        self.spans.append((self._t0, time.time_ns()))
+        self._span.__exit__(*exc)
 
     def busy_ns(self):
         return sum(b - a for a, b in self.spans)
