@@ -565,8 +565,9 @@ def multi_stream(dev, smi, procs, data, kern, geom):
 
 
 def h265_split(ph, plans):
-    """One run of H265SeqPhaseB ``ph`` on the plans with a synchronize
-    around every stage of Phase B; returns {stage: ms per picture}. The
+    """One run of H265SeqPhaseB ``ph`` on the plans, each picture step
+    eager, with a synchronize around every stage of Phase B; returns
+    {stage: ms per picture}. The
     stages: host pack (plan stacking and the wavefront's host schedule:
     the z-slot words in tile mode, the level schedule in level mode),
     upload (the pinned fill and the one host->device copy), residual,
@@ -601,6 +602,10 @@ def h265_split(ph, plans):
     saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
     for obj, name, key in patches:
         setattr(obj, name, timed(key, getattr(obj, name)))
+    # every step eager: a replayed CUDA graph has no stages to time
+    saved.append((R.H265SeqPhaseB, "_step", R.H265SeqPhaseB._step))
+    R.H265SeqPhaseB._step = lambda self, x, m: R._recon_picture(
+        x, m, *self.pool, self.wf)
     try:
         for p in plans:  # the level schedule is cached per plan
             p.__dict__.pop("_levels", None)
@@ -746,7 +751,9 @@ def h265(dev, smi, procs, step_ms):
     real = TK.tile_wavefront
 
     def capturing(*args):
-        if len(captured) < 2:
+        # a capture of a picture step records the launch, not its inputs
+        if (len(captured) < 2
+                and not torch.cuda.is_current_stream_capturing()):
             captured.append(tuple(a.clone() if torch.is_tensor(a) else a
                                   for a in args))
         return real(*args)

@@ -41,7 +41,9 @@ decoder of this package is the scalar spec it is held to):
 Every decision the JAX graph takes on device values (the MC gate, the
 loop bounds, empty banks) is taken here on the host from the numpy plan,
 so no device value is read back. ``H265SeqPhaseB`` keeps the frame pool
-on the device and runs a batch of pictures from one host->device copy.
+on the device and runs a batch of pictures from one host->device copy;
+on a CUDA device it replays a one-slice picture's whole step on the tile
+schedule as one CUDA graph per kind of step (``_graph_key``).
 """
 
 from __future__ import annotations
@@ -1637,11 +1639,11 @@ def _slice_masked_maps(plan):
 
 def _recon_picture(x, m, pool_y, pool_cb, pool_cr, wf):
     """One picture's Phase B. x: the plan's device tensors (coef_*,
-    tu_*, slot, mv, mc_used, mc_remap, the four bank tensors ls, lb, cs,
-    cb in level mode or the z-slot words zl, zc in tile mode, and the
-    edge and SAO maps, per slice for a multi-slice picture); m: its
-    _PicMeta; wf: the geometry's _LevelRunner. Returns (y, cb, cr) uint8
-    planes."""
+    tu_*, slot, mv, mc_used, mc_remap, the pool slot cur_idx [1], the
+    four bank tensors ls, lb, cs, cb in level mode or the z-slot words
+    zl, zc in tile mode, and the edge and SAO maps, per slice for a
+    multi-slice picture); m: its _PicMeta; wf: the geometry's
+    _LevelRunner. Returns (y, cb, cr) uint8 planes."""
     H, W = m.H, m.W
     Hc, Wc = H >> 1, W >> 1
     with trace.span("step.residual"):
@@ -1650,9 +1652,12 @@ def _recon_picture(x, m, pool_y, pool_cb, pool_cr, wf):
                                 False)
         res_cr = residual_plane(x["coef_cr"], x["tu_cr"], m.sizes_cr,
                                 False)
-    prior_y = pool_y[m.cur_idx].to(I32)
-    prior_cb = pool_cb[m.cur_idx].to(I32)
-    prior_cr = pool_cr[m.cur_idx].to(I32)
+    # the slot through a device index, so that a captured step reads
+    # the slot of the picture it replays
+    cur = x["cur_idx"]
+    prior_y = pool_y.index_select(0, cur)[0].to(I32)
+    prior_cb = pool_cb.index_select(0, cur)[0].to(I32)
+    prior_cr = pool_cr.index_select(0, cur)[0].to(I32)
     if m.has_mc:
         # intra pictures have no inter cells: the host skips the MC pass
         with trace.span("step.mc"):
@@ -1772,6 +1777,8 @@ def stack_plans(plans, wf_mode=None):
     fields = {k: ([np.asarray(getattr(p, k)) for p in plans], dt)
               for k, dt in _PLAN_KEYS}
     fields["mc_remap"] = ([m.mc_remap for m in metas], np.int32)
+    fields["cur_idx"] = ([np.array([m.cur_idx], np.int32) for m in metas],
+                         np.int32)
     used = [np.asarray(m.mc_used, np.int32) for m in metas]
     fields["mc_used"] = ([np.concatenate(used + [np.zeros(1, np.int32)])],
                          np.int32)
@@ -1791,7 +1798,8 @@ def _picture_views(x, metas):
     out = []
     offs = {k: 0 for k in (*_WF_KEYS, "mc_used")}
     for b, m in enumerate(metas):
-        v = {k: x[k][b] for k, _ in _PLAN_KEYS + (("mc_remap", 0),)}
+        v = {k: x[k][b]
+             for k, _ in _PLAN_KEYS + (("mc_remap", 0), ("cur_idx", 0))}
         n = len(m.mc_used)
         v["mc_used"] = x["mc_used"][0, offs["mc_used"]:
                                     offs["mc_used"] + n].long()
@@ -1836,6 +1844,17 @@ def replay_plans(plans, pool_size=8, device=None, wf_mode=None):
     return outs
 
 
+def _graph_key(m):
+    """What fixes the ops and shapes of the picture step of ``m`` (a
+    _PicMeta) in one geometry: the steps of one key replay one CUDA
+    graph (``H265SeqPhaseB``). What only changes values (coefficients,
+    slots, MVs, the used slots and the slot of the picture, z-slot
+    words, edge and SAO maps) is read from the graph's inputs."""
+    return (m.sizes_y, m.sizes_cb, m.sizes_cr, m.has_mc, len(m.mc_used),
+            m.deblock, m.has_sao, m.strong_en, m.ctb_log2, m.pic_w,
+            m.pic_h)
+
+
 class H265SeqPhaseB:
     """Device-resident frame pool + batched multi-picture H.265 Phase B:
     each ``run_async`` copies a batch's plans to the device in one
@@ -1843,7 +1862,17 @@ class H265SeqPhaseB:
     each reading the pool [P, H, W] and writing its slot. wf_mode: the
     intra wavefront's schedule, "tile" (the CUDA kernel on the card) or
     "level"; None picks ``wf_mode_for`` of each plan's CTB size (tile up
-    to CTB 16)."""
+    to CTB 16).
+
+    On a CUDA device a one-slice picture on the tile schedule runs as
+    one CUDA graph of its whole step (``_recon_picture``), one graph per
+    ``_graph_key``: the first picture of a key runs eagerly and the step
+    is then captured; each later one copies its device views into the
+    graph's static inputs and replays it. The graphs share one memory
+    pool: they replay in order on one stream, and ``_store`` copies each
+    one's planes out before the next replay. The CPU, the level schedule
+    (whose per-level graphs do not nest in a capture) and multi-slice
+    pictures run eagerly."""
 
     def __init__(self, H, W, pool_size, device=None, wf_mode=None):
         self.device = resolve_device(device)
@@ -1853,6 +1882,50 @@ class H265SeqPhaseB:
             torch.zeros((pool_size, h, w), dtype=U8, device=self.device)
             for h, w in ((H, W), (H >> 1, W >> 1), (H >> 1, W >> 1)))
         self.wf = _LevelRunner(H, W, self.device)
+        #: per _graph_key: (graph, its output planes, [(input name, its
+        #: static buffer)]); the static buffers by (name, shape, dtype);
+        #: the graphs' memory pool
+        self.graphs = {}
+        self._static = {}
+        self._graph_pool = None
+
+    def _step(self, x, m):
+        """The planes of picture step ``m`` from its device views x."""
+        if (self.device.type != "cuda" or m.slices is not None
+                or m.wf_mode != "tile"):
+            return _recon_picture(x, m, *self.pool, self.wf)
+        key = _graph_key(m)
+        entry = self.graphs.get(key)
+        if entry is None:
+            # the eager run gives the planes and fills the lazy caches
+            # (tables, the kernel's library) before the capture
+            planes = _recon_picture(x, m, *self.pool, self.wf)
+            self.graphs[key] = self._capture(x, m)
+            return planes
+        g, planes, inputs = entry
+        for k, buf in inputs:
+            buf.copy_(x[k])
+        g.replay()
+        trace.count("graph.replay", 1)
+        TK.LAUNCHES["h265_tile"] += 1  # the graph's one tile launch
+        return planes
+
+    def _capture(self, x, m):
+        """The CUDA graph of ``m``'s step over static copies of x's
+        views (recorded, not run)."""
+        inputs = []
+        for k, v in x.items():
+            sk = (k, tuple(v.shape), v.dtype)
+            if sk not in self._static:
+                self._static[sk] = torch.empty_like(v)
+            inputs.append((k, self._static[sk]))
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, pool=self._graph_pool):
+            planes = _recon_picture(dict(inputs), m, *self.pool, self.wf)
+        trace.count("graph.capture", 1)
+        return g, planes, inputs
 
     def _store(self, b, cur, planes, outs):
         """Picture b's planes into pool slot ``cur`` and into outs."""
@@ -1884,7 +1957,7 @@ class H265SeqPhaseB:
                                  device=self.device) for p in self.pool)
         for b, (x, m) in enumerate(zip(xs, metas)):
             with trace.span("step"):
-                planes = _recon_picture(x, m, *self.pool, self.wf)
+                planes = self._step(x, m)
                 with trace.span("step.store"):
                     self._store(b, m.cur_idx, planes, outs)
         return outs

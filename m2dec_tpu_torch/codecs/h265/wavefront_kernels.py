@@ -20,7 +20,8 @@ other runs the ops; its time follows the longest chain of ops through
 that dependency (``op_chain``).
 
 ``LAUNCHES`` counts kernel launches, so a run can show it went through
-the kernel.
+the kernel: a launch captured into a CUDA graph counts once per replay
+(``H265SeqPhaseB``), not at the capture.
 """
 
 from __future__ import annotations
@@ -156,5 +157,7 @@ def tile_wavefront(y, cbcr, res_y, res_cbcr, zl, zc, H, W, ctb_log2,
     if err != 0:
         raise RuntimeError(f"h265_tile_wavefront: CUDA launch failed with "
                            f"error {err}")
-    LAUNCHES["h265_tile"] += 1
+    # a launch recorded into a CUDA graph is counted at each replay
+    if not torch.cuda.is_current_stream_capturing():
+        LAUNCHES["h265_tile"] += 1
     return y, cbcr

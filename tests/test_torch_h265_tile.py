@@ -151,6 +151,50 @@ def test_wf_mode_checked():
         R.H265SeqPhaseB(64, 64, 2, device="cpu", wf_mode="diagonal")
 
 
+#: edits of a P picture's plan that change what its step runs (a new
+#: CUDA graph key) and edits of values alone (the same key)
+NEW_KEY = {
+    "no_mc": lambda p: {"slot": np.full_like(p.slot, -1)},
+    "one_more_slot": lambda p: {"slot": _one_more_slot(p.slot)},
+    "tu_sizes": lambda p: {"tu_y": p.tu_y & ~1},
+    "no_deblock": lambda p: {"dbv": np.zeros_like(p.dbv),
+                             "dbh": np.zeros_like(p.dbh),
+                             "dbcv": np.full_like(p.dbcv, -1),
+                             "dbch": np.full_like(p.dbch, -1)},
+    "no_sao": lambda p: {"has_sao": False},
+    "strong": lambda p: {"strong_intra": not p.strong_intra},
+}
+SAME_KEY = {
+    "cur_idx": lambda p: {"cur_idx": (p.cur_idx + 1) % 8},
+    "mv": lambda p: {"mv": p.mv + 4},
+    "coef": lambda p: {"coef_y": p.coef_y ^ 1, "coef_cb": p.coef_cb + 2},
+}
+
+
+def _one_more_slot(slot):
+    used = set(np.unique(slot).tolist())
+    out = slot.copy()
+    out[0, 0, 0] = min(set(range(8)) - used)
+    return out
+
+
+@pytest.mark.parametrize("edit", sorted(NEW_KEY) + sorted(SAME_KEY))
+def test_graph_key(decoded, edit):
+    """The key of a picture step's CUDA graph (``_graph_key``), on the
+    host: an edit of what fixes the step's ops or shapes (MC, the number
+    of used slots, the TU sizes, deblocking, SAO, strong smoothing) gives
+    another key; an edit of values alone keeps the key."""
+    plans = decoded["ctb16_ipb"][1]
+    i, p = (R._PicMeta(q) for q in plans[:2])
+    assert not i.has_mc and p.has_mc and p.deblock and p.has_sao
+    assert R._graph_key(i) != R._graph_key(p)
+    q = copy.copy(plans[1])
+    for k, v in {**NEW_KEY, **SAME_KEY}[edit](plans[1]).items():
+        setattr(q, k, v)
+    assert (R._graph_key(R._PicMeta(q)) != R._graph_key(p)) == \
+        (edit in NEW_KEY)
+
+
 def _longest_path(counts):
     """The most ops on any path of the tile dependency (CTU (cy, cx) after
     (cy, cx - 1) and (cy - 1, min(cx + 1, cols - 1))), by a memoised walk

@@ -5,14 +5,16 @@ zero-strength plans, 20 times over, and on stacks of S streams in one
 launch against S single-stream launches, the MPEG-2 8x8 IDCT on
 random blocks and on MPEG-2 streams, and the H.265 CTU-tile intra
 wavefront on random op words and on H.265 streams (against its plain
-version and the Python decoder's oracle); exact equality (integer
-decode, tolerance 0). The
+version and the Python decoder's oracle), and H.265 picture steps
+replayed as CUDA graphs against the CPU's eager steps; exact equality
+(integer decode, tolerance 0). The
 tests marked ``cuda`` skip on a machine without a GPU. CPU tests show
 the kernel dispatch cannot fall back to the plain version."""
 
 import ctypes
 import pathlib
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -632,6 +634,75 @@ def test_tile_kernel_streams(cuda, name):
         for c, a, b, o in zip(("y", "cb", "cr"), g, w, p.oracle):
             assert np.array_equal(a, b), f"picture {k} {c}: != plain"
             assert np.array_equal(a, o), f"picture {k} {c}: != oracle"
+
+
+def _graph_stream():
+    from streamgen.h265_enc import ALL_MODES, H265StreamGen
+
+    return H265StreamGen(96, 64, seed=7, qp=30, cbf_prob=0.5,
+                         modes=ALL_MODES, tmvp=1, deblock=1, sao=1,
+                         max_level=1).generate("IPBPBP")
+
+
+@pytest.mark.cuda
+def test_h265_graph_steps(cuda):
+    """The CTB-16 ``IPBPBP`` stream through ``H265SeqPhaseB`` on the card
+    in batches of 2, twice over one pool: each picture step is replayed
+    as the CUDA graph of its key (new inputs, another pool slot) after
+    one eager run and one capture per key, byte-equal to the CPU's eager
+    steps on the same batches, with one tile launch per picture."""
+    from m2dec_tpu_torch.codecs.h265.headers import H265Decoder
+    from m2dec_tpu_torch.runtime import trace
+
+    dec = H265Decoder(device="cpu")
+    dec.set_data(_graph_stream())
+    dec.decode_all(collect_plans=True)
+    plans = dec.plans
+    assert len(plans) == 6 and not any(p.multi_slice for p in plans)
+    keys = {R265._graph_key(R265._PicMeta(p)) for p in plans}
+    batches = [plans[i:i + 2] for i in range(0, 6, 2)] * 2
+    geom = (plans[0].H, plans[0].W, len(dec.pool))
+    cpu = R265.H265SeqPhaseB(*geom, device="cpu")
+    want = [cpu.run_async(b) for b in batches]
+    ph = R265.H265SeqPhaseB(*geom, device=cuda)
+    n0 = TK.LAUNCHES["h265_tile"]
+    t0 = time.time_ns()
+    trace.start()
+    try:
+        got = [ph.run_async(b) for b in batches]
+        torch.cuda.synchronize()
+    finally:
+        trace.stop()
+    counts = trace.events(t0, time.time_ns()).counts
+    n = {k: sum(c for name, _, c in counts if name == k)
+         for k in ("graph.capture", "graph.replay")}
+    assert n["graph.capture"] == len(keys) == len(ph.graphs)
+    assert n["graph.replay"] == 12 - len(keys) > 0
+    assert TK.LAUNCHES["h265_tile"] == n0 + 12
+    for k, (g, w) in enumerate(zip(got, want)):
+        for c, a, b in zip(("y", "cb", "cr"), g, w):
+            assert torch.equal(a.cpu(), b), f"batch {k} {c}: != CPU"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,mode", [("ctb16_ipb", "level"),
+                                       ("slices3", "tile")])
+def test_h265_graph_steps_not_taken(cuda, name, mode):
+    """The level schedule and multi-slice pictures keep their eager
+    steps on the card: no picture step is captured."""
+    from m2dec_tpu_torch.codecs.h265.headers import H265Decoder
+
+    dec = H265Decoder(device="cpu")
+    dec.set_data(_h265_streams()[name])
+    dec.decode_all(collect_plans=True)
+    p = dec.plans
+    ph = R265.H265SeqPhaseB(p[0].H, p[0].W, len(dec.pool), device=cuda,
+                            wf_mode=mode)
+    for q in p:
+        ph.run_async_one(q) if q.multi_slice else ph.run_async([q])
+    torch.cuda.synchronize()
+    assert any(q.multi_slice for q in p) == (name == "slices3")
+    assert ph.graphs == {}
 
 
 # ------------------------------------------------ MB-row bands with a halo

@@ -114,7 +114,9 @@ def capture_inputs(data, dev, n):
     real = TK.tile_wavefront
 
     def capturing(*args):
-        if len(captured) < n:
+        # a capture of a picture step records the launch, not its inputs
+        if (len(captured) < n
+                and not torch.cuda.is_current_stream_capturing()):
             captured.append(tuple(a.clone() if torch.is_tensor(a) else a
                                   for a in args))
         return real(*args)
